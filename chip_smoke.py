@@ -7,21 +7,34 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (each prints its seconds; the run fails rather than overrun):
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile the fused physics kernel (csrc/physics_step.cu) with nvcc;
-3. kernel against its plain version (physics/aba.py) on the card: one
-   control step from seeded near-standing states with random actions at
-   every batch the main path launches it with (8 x 128, 8 x 97, 8 x 3 and
-   8 envs) and at 2048, then 25 control steps of drift at 8 x 97;
-4. main path: ANYmal-C flat sampling MPC (RobotTrajGradSampling.mpc_step at
+2. build: compile both fused physics kernels (csrc/physics_step.cu: B1 flat,
+   B2 heightfield) with one nvcc call and print ptxas's report of each;
+3. B1 against its plain version (physics/aba.py) on the card: one control
+   step from seeded near-standing states with random actions at every batch
+   the MPC path launches it with (8 x 128, 8 x 97, 8 x 3 and 8 envs) and at
+   2048, then 25 control steps of drift at 8 x 97;
+4. B2 against its plain version on the anymal_c_rough curriculum grid
+   (900 x 900 heightfield): near-standing states on the spawn origins, one
+   control step at 32 envs (the rough evaluation) and 4096 (the rough
+   config's fleet), 25 control steps of drift at 32; B2 and plain timed at
+   both batches;
+5. MPC path: ANYmal-C flat sampling MPC (RobotTrajGradSampling.mpc_step at
    the committed config, 8 envs, 0.7 m/s command, warm-started from the
-   committed checkpoint), then the solve latency at 1 env and the rollout
-   throughput at 16 envs x 128 samples x H=64, timed with CUDA events;
-5. the kernel line (JSON) and the result line.
+   committed checkpoint); B1's launch count is read from this run;
+6. rough path: the anymal_c_rough env at 4096 envs, levels frozen, stepped
+   20 control steps by the committed rough policy; B2's launch count is read
+   from this run and must be 20; then control steps per second, policy
+   included, and a short rough evaluation (scripts/eval_rough.run_eval, 32
+   envs, 50 + 100 steps, levels <= 2);
+7. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+   envs x 128 samples x H=64, timed with CUDA events;
+8. the kernel line (JSON) and the result line.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -33,6 +46,7 @@ PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl")
+ROUGH_CKPT = os.path.join(ROOT, "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl")
 CMD = 0.7
 
 # kernel against plain, one control step (tests/test_physics_kernel.py:66-84):
@@ -43,6 +57,9 @@ ONE_STEP_ATOL = dict(base_pos=1e-4, base_quat=1e-4, joint_pos=5e-4, base_lin_vel
 # the main path's batches at E=8: sampling rollouts (8 x 128), fd polish
 # (8 x 97), line search (8 x 3), the main env step (8); and the rollout cell's 2048
 CHECK_B = (1024, 776, 24, 8, 2048)
+# B2: the rough evaluation's fleet and the rough config's training fleet
+ROUGH_B = (32, 4096)
+ROUGH_STEPS = 20
 # after 25 control steps (100 substeps) the stiction/contact dynamics amplify
 # rounding differences (FMA contraction, summation order); the bounds are ~10x
 # the divergence of the same code compiled for the host
@@ -65,6 +82,71 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def compare_one_step(name, step, B, states, kernel_stats):
+    """One control step of ``step``'s kernel against its plain version from
+    ``states`` = (phys, env_params, actions); fails beyond ONE_STEP_ATOL.
+    Times both and records ms, plain ms and the bound in ``kernel_stats[B]``.
+    Returns the largest difference over the checked fields."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.scripts import bench_mpc
+
+    st, ep, act = states
+    model = step.model
+    sk, tk, rk = step.launch(st, act, ep)
+    sp_, tp, rp = step.plain(st, act, ep)
+    torch.cuda.synchronize()
+    errs = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item()
+            for k in ONE_STEP_ATOL if k != "foot_pos"}
+    errs["foot_pos"] = (rk.foot_pos - rp.foot_pos).abs().max().item()
+    errs["tau_last"] = (tk - tp).abs().max().item()
+    fz_k, fz_p = rk.geom_forces[..., 2].sum(1), rp.geom_forces[..., 2].sum(1)
+    fz_ok = bool(((fz_k - fz_p).abs() <= 30.0 + 0.2 * fz_p.abs()).all())
+    log(f"{name} one step B={B}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+        + f" fz_sum_max_diff={(fz_k - fz_p).abs().max().item():.3g} (rtol 0.2, atol 30)")
+    for k, tol in ONE_STEP_ATOL.items():
+        if not errs[k] <= tol:
+            fail(f"{name} vs plain at B={B}: {k} differs by {errs[k]:.3g} > {tol}")
+    if not fz_ok:
+        fail(f"{name} vs plain at B={B}: vertical geom force sums disagree")
+    for out in (sk, sp_):
+        if not all(torch.isfinite(getattr(out, k)).all() for k in ONE_STEP_ATOL if k != "foot_pos"):
+            fail(f"non-finite state after one {name} step at B={B}")
+    kms = bench_mpc.cuda_ms(lambda: step.launch(st, act, ep), reps=20, warmup=3)
+    pms = bench_mpc.cuda_ms(lambda: step.plain(st, act, ep), reps=3, warmup=1)
+    nbytes = (B * pk.control_step_bytes(model.nj, model.ng, step.nf, step.decimation, step.rough)
+              + 4 * (pk.TF_SIZE + pk.TI_SIZE))
+    flops = B * pk.control_step_flops(model.nb, model.nj, model.ng, step.nf, step.decimation,
+                                      step.rough)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    kernel_stats[B] = dict(ms=kms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"{name} at B={B}: kernel {kms:.4f} ms/launch, plain {pms:.3f} ms, bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({flops:.3g} flop, {nbytes:.3g} bytes)")
+    return max(errs[k] for k in ONE_STEP_ATOL)
+
+
+def drift_check(name, step, B, states):
+    """25 control steps of kernel and plain from the same states (actions
+    scaled by 0.2); fails beyond DRIFT_ATOL."""
+    import torch
+
+    st, ep, act = states
+    act = 0.2 * act
+    sk, sp_ = st, st
+    for _ in range(25):
+        sk = step.launch(sk, act, ep)[0]
+        sp_ = step.plain(sp_, act, ep)[0]
+    torch.cuda.synchronize()
+    drift = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item() for k in DRIFT_ATOL}
+    log(f"{name} drift after 25 control steps B={B}: "
+        + " ".join(f"{k}={v:.3g}" for k, v in drift.items()))
+    for k, tol in DRIFT_ATOL.items():
+        if not drift[k] <= tol:
+            fail(f"{name} 25-step drift of {k} is {drift[k]:.3g} > {tol}")
+
+
 def main():
     import torch
 
@@ -73,13 +155,16 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    import numpy as np
 
+    from extended_legged_gym_tpu_torch.models.networks import ActorCritic, load_jax_checkpoint
     from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
-    from extended_legged_gym_tpu_torch.physics import EnvPhysParams, initial_state, load_model
+    from extended_legged_gym_tpu_torch.physics import load_model
+    from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_rough_ppo_cfg
     from extended_legged_gym_tpu_torch.robots.anymal_c_traj import (
         AnymalCTrajGradSampling, anymal_c_traj_sampling_cfg)
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import run_eval
     from extended_legged_gym_tpu_torch.utils.device import resolve_device
 
     # ---------------- 1. device ----------------
@@ -95,80 +180,41 @@ def main():
     t0 = time.perf_counter()
     pk.load_library()
     for line in pk.build_log().splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
+        if any(w in line for w in ("entry function", "registers", "spill", "stack frame")):
             log(f"ptxas: {line.strip()}")
     phase_done("build", t0)
 
-    # ---------------- 3. kernel against plain ----------------
+    # ---------------- 3. B1 against plain ----------------
     t0 = time.perf_counter()
     cfg = anymal_c_traj_sampling_cfg(1)
     model = load_model(cfg.asset.file)
-    env_probe = AnymalCTrajGradSampling(cfg, device=dev)
-    step = env_probe.decimated_step
-    nj, ng, nf = model.nj, model.ng, step.nf
-
-    def near_standing(B, seed):
-        rng = np.random.default_rng(seed)
-        t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
-        st = initial_state(model, B, pos=(0.0, 0.0, 0.54), device=dev)
-        st = st.replace(base_pos=st.base_pos + t(0.05 * rng.standard_normal((B, 3))),
-                        joint_pos=st.joint_pos + t(0.1 * rng.standard_normal((B, nj))),
-                        joint_vel=t(0.5 * rng.standard_normal((B, nj))),
-                        base_lin_vel=t(0.3 * rng.standard_normal((B, 3))),
-                        base_ang_vel=t(0.3 * rng.standard_normal((B, 3))))
-        st = st.replace(contact_anchor=st.base_pos[:, None, :2].expand(B, ng, 2).contiguous())
-        ep = EnvPhysParams(t(rng.uniform(0.5, 1.25, B)), t(rng.uniform(-1.0, 1.0, B)))
-        return st, ep, t(rng.standard_normal((B, nj)))
-
-    max_err, kernel_stats = 0.0, {}
+    step = AnymalCTrajGradSampling(cfg, device=dev).decimated_step
+    flat_stats, flat_err = {}, 0.0
     for B in CHECK_B:
-        st, ep, act = near_standing(B, seed=B)
-        sk, tk, rk = step.launch(st, act, ep)
-        sp_, tp, rp = step.plain(st, act, ep)
-        torch.cuda.synchronize()
-        errs = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item()
-                for k in ONE_STEP_ATOL if k != "foot_pos"}
-        errs["foot_pos"] = (rk.foot_pos - rp.foot_pos).abs().max().item()
-        errs["tau_last"] = (tk - tp).abs().max().item()
-        fz_k, fz_p = rk.geom_forces[..., 2].sum(1), rp.geom_forces[..., 2].sum(1)
-        fz_ok = bool(((fz_k - fz_p).abs() <= 30.0 + 0.2 * fz_p.abs()).all())
-        log(f"one step B={B}: " + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
-            + f" fz_sum_max_diff={(fz_k - fz_p).abs().max().item():.3g} (rtol 0.2, atol 30)")
-        for k, tol in ONE_STEP_ATOL.items():
-            if not errs[k] <= tol:
-                fail(f"kernel vs plain at B={B}: {k} differs by {errs[k]:.3g} > {tol}")
-        if not fz_ok:
-            fail(f"kernel vs plain at B={B}: vertical geom force sums disagree")
-        max_err = max(max_err, *(errs[k] for k in ONE_STEP_ATOL))
-        for out in (sk, sp_):
-            if not all(torch.isfinite(getattr(out, k)).all() for k in ONE_STEP_ATOL if k != "foot_pos"):
-                fail(f"non-finite state after one step at B={B}")
-        kms = bench_mpc.cuda_ms(lambda: step.launch(st, act, ep), reps=20, warmup=3)
-        pms = bench_mpc.cuda_ms(lambda: step.plain(st, act, ep), reps=3, warmup=1)
-        nbytes = 4 * B * (2 * step.NS + 2 * nj + 2 + 3 * ng + 6 * nf) + 4 * (pk.TF_SIZE + pk.TI_SIZE)
-        flops = B * pk.control_step_flops(model.nb, nj, ng, nf, step.decimation)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-        kernel_stats[B] = dict(ms=kms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
-                               bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log(f"B1 at B={B}: kernel {kms:.4f} ms/launch, plain {pms:.3f} ms, bound "
-            f"{max(t_bytes, t_ops) * 1e3:.3f} us ({flops:.3g} flop, {nbytes:.3g} bytes)")
-
-    st, ep, act = near_standing(776, seed=7)
-    act = 0.2 * act
-    sk, sp_ = st, st
-    for _ in range(25):
-        sk = step.launch(sk, act, ep)[0]
-        sp_ = step.plain(sp_, act, ep)[0]
-    torch.cuda.synchronize()
-    drift = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item() for k in DRIFT_ATOL}
-    log("drift after 25 control steps B=776: " + " ".join(f"{k}={v:.3g}" for k, v in drift.items()))
-    for k, tol in DRIFT_ATOL.items():
-        if not drift[k] <= tol:
-            fail(f"25-step drift of {k} is {drift[k]:.3g} > {tol}")
+        flat_err = max(flat_err, compare_one_step("B1", step, B, near_standing(model, B, B, dev),
+                                                  flat_stats))
+    drift_check("B1", step, 776, near_standing(model, 776, 7, dev))
     log("no single PyTorch call computes this step; library_ms is null")
-    phase_done("kernel vs plain", t0)
+    phase_done("B1 vs plain", t0)
 
-    # ---------------- 4. main path ----------------
+    # ---------------- 4. B2 against plain ----------------
+    t0 = time.perf_counter()
+    renv = rough_env(max(ROUGH_B), dev)
+    rstep = renv.decimated_step
+    if not rstep.rough:
+        fail("the rough env's physics step is not B2")
+    origins = renv.reset_all(seed=0).env_origins
+    log(f"rough terrain {renv.terrain.shape[0]} x {renv.terrain.shape[1]} at "
+        f"{renv.terrain.hscale:.3g} m; spawn levels 0..{int(renv.init_terrain_levels.max())}")
+    rough_stats, rough_err = {}, 0.0
+    for B in ROUGH_B:
+        rough_err = max(rough_err, compare_one_step(
+            "B2", rstep, B, near_standing(model, B, B, dev, origins), rough_stats))
+    drift_check("B2", rstep, 32, near_standing(model, 32, 11, dev, origins))
+    log("no single PyTorch call computes this step; library_ms is null")
+    phase_done("B2 vs plain", t0)
+
+    # ---------------- 5. MPC path ----------------
     t0 = time.perf_counter()
     E, n_warm, n_cycles = 8, 6, 34
     cfg = anymal_c_traj_sampling_cfg(E)
@@ -179,7 +225,7 @@ def main():
     cfg.commands.ranges.ang_vel_yaw = [0.0, 0.0]
     env = AnymalCTrajGradSampling(cfg, device=dev)
     env.setup_rl_warmstart()
-    pk.DecimatedEnvStep.launches = 0
+    pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
     state = env.reset_all(seed=0)
     nodes = env.init_trajectories_from_rl(state)
     vx, up, resets = [], [], 0
@@ -190,21 +236,69 @@ def main():
             up.append(state.projected_gravity[:, 2])
             resets += int(state.reset_buf.sum())
     torch.cuda.synchronize()
-    launches = pk.DecimatedEnvStep.launches
+    flat_launches = pk.DecimatedEnvStep.launches
     vx, up = torch.stack(vx), torch.stack(up)
     half = n_cycles // 2
     ratio = vx[half:].mean().item() / CMD
     upright = up[half:].mean().item()
-    log(f"main path: {n_warm}+{n_cycles} mpc_step cycles, E={E}: achieved/command={ratio:.4f} "
-        f"upright_mean={upright:.4f} resets={resets} kernel launches={launches}")
-    if launches <= 0:
-        fail("the main path launched the physics kernel no time")
+    log(f"MPC path: {n_warm}+{n_cycles} mpc_step cycles, E={E}: achieved/command={ratio:.4f} "
+        f"upright_mean={upright:.4f} resets={resets} B1 launches={flat_launches} "
+        f"B2 launches={pk.DecimatedEnvStep.rough_launches}")
+    if flat_launches <= 0:
+        fail("the MPC path launched B1 no time")
     if not (torch.isfinite(vx).all() and torch.isfinite(up).all() and torch.isfinite(nodes).all()):
-        fail("non-finite values on the main path")
+        fail("non-finite values on the MPC path")
     if not upright < -0.9:
         fail(f"robots did not stay upright (upright_mean {upright:.3f})")
-    phase_done("main path", t0)
+    phase_done("MPC path", t0)
 
+    # ---------------- 6. rough path ----------------
+    t0 = time.perf_counter()
+    pol = anymal_c_rough_ppo_cfg().policy
+    net = ActorCritic(renv.num_obs, renv.num_actions, pol.actor_hidden_dims,
+                      pol.critic_hidden_dims, pol.activation)
+    net.load_state_dict(load_jax_checkpoint(ROUGH_CKPT))
+    net = net.to(dev).eval()
+    cmd = torch.zeros(renv.num_envs, 4, device=dev)
+    cmd[:, 0] = CMD
+    with torch.no_grad():
+        state = renv.reset_all(seed=0).replace(commands=cmd)
+        pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+        up, finite = [], True
+        for _ in range(ROUGH_STEPS):
+            state = renv.step(state, net.act_inference(state.obs)).replace(commands=cmd)
+            up.append(state.projected_gravity[:, 2])
+            finite = finite and bool(torch.isfinite(state.obs).all())
+        torch.cuda.synchronize()
+        rough_launches = pk.DecimatedEnvStep.rough_launches
+        upright = torch.stack(up).mean().item()
+        log(f"rough path: {ROUGH_STEPS} control steps, {renv.num_envs} envs, obs "
+            f"{tuple(state.obs.shape)}: B2 launches={rough_launches} B1 launches="
+            f"{pk.DecimatedEnvStep.launches} upright_mean={upright:.4f} obs finite={finite} "
+            f"falls={int((state.reset_buf & ~state.time_out_buf).sum())} (last step)")
+        if rough_launches != ROUGH_STEPS:
+            fail(f"the rough path launched B2 {rough_launches} times, not {ROUGH_STEPS}")
+        if not finite:
+            fail("non-finite observations on the rough path")
+        if not upright < -0.9:
+            fail(f"rough-path robots did not stay upright (upright_mean {upright:.3f})")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(ROUGH_STEPS):
+            state = renv.step(state, net.act_inference(state.obs)).replace(commands=cmd)
+        torch.cuda.synchronize()
+        sps = ROUGH_STEPS / (time.perf_counter() - t1)
+    log(f"rough env at {renv.num_envs} envs, policy included: {sps:.2f} control steps/s "
+        f"({sps * renv.num_envs:.0f} env-steps/s)")
+    res = run_eval(ROUGH_CKPT, 32, 100, 50, CMD, max_init_level=2, seed=0, device=dev)
+    log(f"short rough eval (32 envs, 50+100 steps, levels <= 2): achieved/command="
+        f"{res['achieved_over_command']} upright_mean={res['upright_mean']} "
+        f"falls={res['falls']} by type {res['falls_by_terrain_type']}")
+    if not all(math.isfinite(res[k]) for k in ("achieved_over_command", "upright_mean")):
+        fail("non-finite values in the short rough eval")
+    phase_done("rough path", t0)
+
+    # ---------------- 7. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -214,15 +308,19 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 5. result ----------------
-    ks = kernel_stats[1024]
-    log(json.dumps({"kernels": [{
-        "name": "flat_decimated_physics_step", "route": "cuda",
-        "source": "extended_legged_gym_tpu_torch/csrc/physics_step.cu",
-        "replaces": "extended_legged_gym_tpu/ops/physics_kernel.py:447",
-        "launches": launches, "max_abs_err": max_err, "ms": ks["ms"],
-        "plain_ms": ks["plain_ms"], "bound_ms": ks["bound_ms"], "bound_by": ks["bound_by"],
-        "library_ms": None}]}))
+    # ---------------- 8. result ----------------
+    src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
+    kernels = []
+    for name, launches, err, ks, replaces in (
+            ("flat_decimated_physics_step", flat_launches, flat_err, flat_stats[1024],
+             "extended_legged_gym_tpu/ops/physics_kernel.py:447"),
+            ("rough_decimated_physics_step", rough_launches, rough_err, rough_stats[4096],
+             "extended_legged_gym_tpu/ops/physics_kernel.py:447")):
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches, "max_abs_err": err, "ms": ks["ms"],
+                        "plain_ms": ks["plain_ms"], "bound_ms": ks["bound_ms"],
+                        "bound_by": ks["bound_by"], "library_ms": None})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -15,6 +15,7 @@ Conventions:
 * entry points take ``device=`` and default to ``"cuda"``: they raise when
   CUDA is absent unless the caller asks for ``"cpu"``.
 
-The one hand-written kernel is the fused, decimated flat physics step
-(``csrc/physics_step.cu``, wrapped by ``ops/physics_kernel.py``).
+The hand-written kernels are the fused, decimated physics step in its two
+regimes, B1 on flat ground and B2 on a heightfield (``csrc/physics_step.cu``,
+wrapped by ``ops/physics_kernel.py``).
 """

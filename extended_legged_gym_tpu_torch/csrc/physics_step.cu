@@ -1,40 +1,63 @@
-// Fused, decimated flat-terrain physics step for NVIDIA Hopper (sm_90a).
+// Fused, decimated physics step for NVIDIA Hopper (sm_90a), flat and rough.
 //
-// Replaces the TPU kernel B1: extended_legged_gym_tpu/ops/physics_kernel.py,
-// build_physics_kernel(rough=False) (kernel body :136-419, pallas_call :447),
-// as driven by make_decimated_env_step (:626-735).  One launch advances B
-// environments by one CONTROL step: for each of `decimation` substeps it
-// computes the PD (or direct) torques and runs one semi-implicit-Euler ABA
-// step: forward kinematics and velocities, sphere-vs-plane penalty contacts
-// (depth clamp, no-adhesion kd cap, tangential damping, anchor stiction),
-// implicit contact damper dt*Ds added to the articulated inertias, backward
-// sweep, 6x6 Cholesky base solve, forward sweep, clamped integration with an
-// exp-map quaternion.  The last substep also reports the contact force on every
-// geom (implicit-consistent, post-step point velocities) and foot kinematics.
-// Its plain version is physics/aba.py (aba_physics_step), run once per
-// substep; the wrapper is ops/physics_kernel.py.
+// Replaces the TPU kernels of extended_legged_gym_tpu/ops/physics_kernel.py,
+// build_physics_kernel (:50, kernel body :136-419, pallas_call :447):
+//   B1, rough=False, as driven by make_decimated_env_step (:626-735) on flat
+//       ground: entry physics_decimated_step;
+//   B2, rough=True, as driven by make_env_step_rough (:565) and
+//       make_decimated_env_step (:626) on a heightfield: entry
+//       physics_decimated_step_rough.
+// One launch advances B environments by one CONTROL step: for each of
+// `decimation` substeps it computes the PD (or direct) torques and runs one
+// semi-implicit-Euler ABA step: forward kinematics and velocities,
+// sphere-vs-terrain penalty contacts (depth clamp, no-adhesion kd cap,
+// tangential damping, anchor stiction), implicit contact damper dt*Ds added to
+// the articulated inertias, backward sweep, 6x6 Cholesky base solve, forward
+// sweep, clamped integration with an exp-map quaternion.  The last substep also
+// reports the contact force on every geom (implicit-consistent, post-step
+// point velocities) and foot kinematics.  Its plain version is physics/aba.py
+// (aba_physics_step), run once per substep; the wrapper is
+// ops/physics_kernel.py.
+//
+// B1 contacts a plane at a constant height (n = z).  B2 reads, for every geom
+// in every substep, the four bilinear corners of the heightfield cell under the
+// geom from a corner-packed texture [H*W] of float4 (one 16-byte read; the
+// 900 x 900 grid of the rough task is 13 MB and stays in the 50 MB L2), and
+// takes the height and the normalised analytic gradient normal of the bilinear
+// patch, as terrain/heightfield.py:sample_height_and_normal does; the gap is
+// vertical, the anchor displacement is projected on the tangent plane and the
+// damper D = kt I + (kd_g - kt) n n^T enters the articulated inertias with that
+// n.  Unlike the Pallas B2, which samples one tangent plane per geom per
+// control step at the previous control step's geom positions and extrapolates
+// inside the kernel, this kernel samples the grid at the current geom position
+// in every substep, as the ABA engine does: no geom-position carry, no stale
+// plane.
 //
 // Design: one thread per environment over SoA [rows, B] tensors, any B, the
 // tail masked, in blocks of one warp, so B envs spread over B/32 SMs and each
 // SM's L1 serves fewer of the per-thread stacks; __launch_bounds__(32, 1) lets
-// ptxas keep ~150 registers per thread (left to itself it chose 64 and spilled).  The model (tree, joint frames, spatial inertias, geoms, gains,
-// contact and sim parameters) comes in as two small device tables, one of
-// floats and one of ints, laid out by the offsets below (mirrored in
-// ops/physics_kernel.py).  Loops run to the model's sizes under fixed
-// compile-time maxima, so one build serves every robot and nvcc takes
+// ptxas keep ~150 registers per thread (left to itself it chose 64 and
+// spilled).  The model (tree, joint frames, spatial inertias, geoms, gains,
+// contact, sim and terrain-grid parameters) comes in as two small device
+// tables, one of floats and one of ints, laid out by the offsets below
+// (mirrored in ops/physics_kernel.py).  Loops run to the model's sizes under
+// fixed compile-time maxima, so one build serves every robot and nvcc takes
 // seconds.  Per-thread working arrays (13 articulated inertias of 36 floats,
-// geom stashes, ...) live in local memory.
+// geom stashes, ...) live in local memory.  The flat and rough regimes are one
+// templated per-env body (ROUGH), so both kernels come from one nvcc call and
+// the flat one compiles as before.
 //
 // What bounds it on an H100: for ANYmal-C one env's control step needs
-// ~8.9e4 float operations (~2.2e4 per substep, counted blockwise in
+// ~8.9e4 float operations in B1 and ~9.4e4 in B2 (counted blockwise in
 // ops/physics_kernel.py:control_step_flops) and moves ~1.5 KB of state and
-// outputs, so at the main path's B = 8..2048 envs a launch is at most ~2e8
-// operations and ~3 MB: the card's rate bounds (67 TFLOP/s float32,
-// 3.35 TB/s) put it at a few microseconds.  It is not near them.  With one
-// thread per env, B = 2048 fills 64 of the 132 SMs with one warp each, and
-// each thread walks a serial chain of dependent float operations through its
-// 16 KB local-memory stack.  Latency bounds it: instruction and local-memory
-// latency with one warp per SM.
+// outputs (B2: plus 16 bytes per geom per substep of corner reads, ~3.8 KB),
+// so at B = 32..4096 envs a launch is at most ~4e8 operations and ~16 MB: the
+// card's rate bounds (67 TFLOP/s float32, 3.35 TB/s) put it at a few
+// microseconds.  It is not near them.  With one thread per env, B = 4096 fills
+// 128 of the 132 SMs with one warp each, and each thread walks a serial chain
+// of dependent float operations through its ~16 KB local-memory stack; B2 adds
+// one dependent texture read per geom and substep.  Latency bounds it:
+// instruction and memory latency with one warp per SM.
 // A later design spreads one env over a warp or a few threads (one thread per
 // leg for the per-body sweeps, lanes for the 6x6 blocks), stages the
 // articulated inertias in shared memory instead of local memory, and batches
@@ -45,6 +68,7 @@
 #define PHYS_HD __host__ __device__ __forceinline__
 #else
 #define PHYS_HD inline
+struct float4 { float x, y, z, w; };
 #endif
 #include <math.h>
 
@@ -60,6 +84,8 @@
 #define TI_NF 3
 #define TI_DECIM 4
 #define TI_CTRL 5          // 0: P (PD on position targets), 1: T (direct torque)
+#define TI_TH 6            // heightfield rows H (rough)
+#define TI_TW 7            // heightfield columns W (rough)
 #define TI_PARENT 8
 #define TI_GBODY (TI_PARENT + MAX_NB)
 #define TI_FGEOM (TI_GBODY + MAX_NG)
@@ -92,7 +118,10 @@
 #define TF_GOFF (TF_DDP + MAX_NJ)           // [MAX_NG][3] geom offset (body frame)
 #define TF_GRAD (TF_GOFF + MAX_NG * 3)      // [MAX_NG] geom radius
 #define TF_FOFF (TF_GRAD + MAX_NG)          // [MAX_NF][3] foot offset (body frame)
-#define TF_SIZE (TF_FOFF + MAX_NF * 3)
+#define TF_HS (TF_FOFF + MAX_NF * 3)     // heightfield spacing (rough)
+#define TF_ORG (TF_HS + 1)                  // [2] world xy of grid index (0, 0)
+#define TF_GMAX (TF_ORG + 2)                // [2] grid-coordinate clips H - 1.001, W - 1.001
+#define TF_SIZE (TF_GMAX + 2)
 
 // ---------------------------------------------------------------- small math
 PHYS_HD void m3mul(const float* A, const float* B, float* C) {
@@ -203,14 +232,47 @@ PHYS_HD void add_xia(const float* E, const float* r, const float* Ia, float* IAp
     }
 }
 
+// ---------------------------------------------------------------- terrain (B2)
+// The four bilinear corners of texture row `i`: [h(i,j), h(i,j+1), h(i+1,j), h(i+1,j+1)].
+PHYS_HD float4 load_corners(const float4* tex, int i) {
+#ifdef __CUDA_ARCH__
+  return __ldg(tex + i);
+#else
+  return tex[i];
+#endif
+}
+
+// Height h and unit normal n of the bilinear patch under world point (x, y),
+// as terrain/heightfield.py:sample_height_and_normal computes them.  The clip
+// keeps the cell inside the grid (fminf/fmaxf also send a NaN to a bound).
+PHYS_HD float terrain_sample(const float* tf, const int* ti, const float4* tex, float x, float y,
+                             float* n) {
+  const float hs = tf[TF_HS];
+  float gx = fminf(fmaxf((x - tf[TF_ORG]) / hs, 0.f), tf[TF_GMAX]);
+  float gy = fminf(fmaxf((y - tf[TF_ORG + 1]) / hs, 0.f), tf[TF_GMAX + 1]);
+  float x0 = floorf(gx), y0 = floorf(gy);
+  float4 c = load_corners(tex, (int)x0 * ti[TI_TW] + (int)y0);
+  float fx = gx - x0, fy = gy - y0;
+  // c.x = h00, c.y = h01, c.z = h10, c.w = h11
+  float h = c.x * (1.f - fx) * (1.f - fy) + c.z * fx * (1.f - fy) + c.y * (1.f - fx) * fy
+            + c.w * fx * fy;
+  float dhdx = ((c.z - c.x) * (1.f - fy) + (c.w - c.y) * fy) / hs;
+  float dhdy = ((c.y - c.x) * (1.f - fx) + (c.w - c.z) * fx) / hs;
+  float nn = sqrtf(dhdx * dhdx + dhdy * dhdy + 1.f);
+  n[0] = -dhdx / nn; n[1] = -dhdy / nn; n[2] = 1.f / nn;
+  return h;
+}
+
 // ---------------------------------------------------------------- per-env step
 // State rows: [pos(3), quat(4), jpos(nj), lvel(3), avel(3), jvel(nj), anchors(2 ng)].
 // `s` is this env's state (NS floats, updated in place); `act` the scaled
 // actions; on the last substep the report goes to gf (3 ng), fpos, fvel (3 nf)
-// and tau (nj).
-PHYS_HD void env_control_step(const float* tf, const int* ti, float* s, const float* act,
-                              float fric, float delta, float* tau_last, float* gf,
-                              float* fpos, float* fvel) {
+// and tau (nj).  ROUGH selects B2: contacts against the heightfield `tex`
+// (unused by B1, which contacts the plane at tf[TF_H0]).
+template <bool ROUGH>
+PHYS_HD void env_control_step(const float* tf, const int* ti, const float4* tex, float* s,
+                              const float* act, float fric, float delta, float* tau_last,
+                              float* gf, float* fpos, float* fvel) {
   const int nb = ti[TI_NB], nj = ti[TI_NJ], ng = ti[TI_NG], nf = ti[TI_NF];
   const int decim = ti[TI_DECIM], ctrl = ti[TI_CTRL];
   const float dt = tf[TF_DT], kp = tf[TF_KP], kd = tf[TF_KD], ktmax = tf[TF_KT];
@@ -220,7 +282,9 @@ PHYS_HD void env_control_step(const float* tf, const int* ti, float* s, const fl
 
   float R[MAX_NB][9], P[MAX_NB][3], Ej[MAX_NB][9], V[MAX_NB][6], Cb[MAX_NB][6];
   float IA[MAX_NB][36], pA[MAX_NB][6], U[MAX_NB][6], dinv[MAX_NB], uu[MAX_NB], A[MAX_NB][6];
-  float tau[MAX_NJ], gst[MAX_NG][9];
+  // per-geom stash for the report; B1: v(3), fz_el, kt, kd - kt, active, fs_xy(2);
+  // B2: v(3), f_el(3), n(3), kt, kd - kt, active
+  float tau[MAX_NJ], gst[MAX_NG][ROUGH ? 12 : 9];
 
   for (int sub = 0; sub < decim; ++sub) {
     const bool last = (sub == decim - 1);
@@ -297,58 +361,116 @@ PHYS_HD void env_control_step(const float* tf, const int* ti, float* s, const fl
       for (int k = 0; k < 3; ++k) gvb[k] = V[b][3 + k] + tmp[k];
       m3vec(R[b], gvb, gv);
 
-      float depth = (h0 + rad) - gp[2];
-      float active = depth > 0.f ? 1.f : 0.f;
-      float depth_a = fminf(fmaxf(depth, 0.f), 2.f * rad + 0.05f);
-      float vn = gv[2];
-      float vt_norm = sqrtf(gv[0] * gv[0] + gv[1] * gv[1]);
-      float fn_el = kp * depth_a;
-      float kd_g = fminf(kd, fn_el / fmaxf(vn, 1e-6f));
-      float fn_est = fmaxf(fn_el - kd_g * vn, 0.f) * active;
-      float kt_eff = fminf(ktmax, mu * fn_est / fmaxf(vt_norm, 1e-3f));
-      float* anc = s + AN + 2 * g;
-      float dx = gp[0] - anc[0], dy = gp[1] - anc[1];
-      float dn = sqrtf(dx * dx + dy * dy);
-      float budget = fmaxf(mu * fn_est - kt_eff * vt_norm, 0.f);
-      float cf = fminf(1.f, budget / fmaxf(kts * dn, 1e-9f));
-      float fsx = -kts * cf * active * dx, fsy = -kts * cf * active * dy;
-      float kt_a = kt_eff * active, kdm = (kd_g - kt_eff) * active;
-      float fz_el = fn_el * active;
-      if (active > 0.f) { anc[0] = gp[0] - cf * dx; anc[1] = gp[1] - cf * dy; }
-      else { anc[0] = gp[0]; anc[1] = gp[1]; }
-      float* st = gst[g];
-      st[0] = gv[0]; st[1] = gv[1]; st[2] = gv[2];
-      st[3] = fz_el; st[4] = kt_a; st[5] = kdm; st[6] = active; st[7] = fsx; st[8] = fsy;
+      if constexpr (ROUGH) {
+        float n[3];
+        float h = terrain_sample(tf, ti, tex, gp[0], gp[1], n);
+        float depth = (h + rad) - gp[2];
+        float active = depth > 0.f ? 1.f : 0.f;
+        float depth_a = fminf(fmaxf(depth, 0.f), 2.f * rad + 0.05f);
+        float vn = gv[0] * n[0] + gv[1] * n[1] + gv[2] * n[2];
+        float vt[3] = {gv[0] - vn * n[0], gv[1] - vn * n[1], gv[2] - vn * n[2]};
+        float vt_norm = sqrtf(vt[0] * vt[0] + vt[1] * vt[1] + vt[2] * vt[2]);
+        float fn_el = kp * depth_a;
+        float kd_g = fminf(kd, fn_el / fmaxf(vn, 1e-6f));
+        float fn_est = fmaxf(fn_el - kd_g * vn, 0.f) * active;
+        float kt_eff = fminf(ktmax, mu * fn_est / fmaxf(vt_norm, 1e-3f));
+        float* anc = s + AN + 2 * g;
+        float dx = gp[0] - anc[0], dy = gp[1] - anc[1];
+        // anchor displacement (dx, dy, 0) projected on the tangent plane
+        float dnn = dx * n[0] + dy * n[1];
+        float dt3[3] = {dx - dnn * n[0], dy - dnn * n[1], -dnn * n[2]};
+        float dn = sqrtf(dt3[0] * dt3[0] + dt3[1] * dt3[1] + dt3[2] * dt3[2]);
+        float budget = fmaxf(mu * fn_est - kt_eff * vt_norm, 0.f);
+        float cf = fminf(1.f, budget / fmaxf(kts * dn, 1e-9f));
+        float kt_a = kt_eff * active, kdm = (kd_g - kt_eff) * active;
+        float fel[3];
+        for (int k = 0; k < 3; ++k) fel[k] = fn_el * n[k] * active - kts * (cf * active) * dt3[k];
+        if (active > 0.f) { anc[0] = gp[0] - cf * dx; anc[1] = gp[1] - cf * dy; }
+        else { anc[0] = gp[0]; anc[1] = gp[1]; }
+        float* st = gst[g];
+        for (int k = 0; k < 3; ++k) { st[k] = gv[k]; st[3 + k] = fel[k]; st[6 + k] = n[k]; }
+        st[9] = kt_a; st[10] = kdm; st[11] = active;
 
-      // explicit force f_el - D v (n = z), into body coords at the body origin
-      float fw[3] = {fsx - kt_a * gv[0], fsy - kt_a * gv[1], fz_el - (kt_a + kdm) * gv[2]};
-      float fb[3], nfb[3];
-      m3Tvec(R[b], fw, fb);
-      cross3(go, fb, nfb);
-      for (int k = 0; k < 3; ++k) { pA[b][k] -= nfb[k]; pA[b][3 + k] -= fb[k]; }
-      // implicit damper dt Ds, Ds = [[rx D rx^T, rx D], [D rx^T, D]], with
-      // D = kt I + kdm n n^T in body coords (n = R^T z, the third row of R), so
-      // rx D rx^T = kt (|r|^2 I - r r^T) + kdm m m^T and rx D = kt rx + kdm m n^T, m = r x n
-      const float* nz = R[b] + 6;
-      float m[3];
-      cross3(go, nz, m);
-      const float kt_d = dt * kt_a, kd_d = dt * kdm;
-      const float rr = go[0] * go[0] + go[1] * go[1] + go[2] * go[2];
-      const float rx[9] = {0.f, -go[2], go[1], go[2], 0.f, -go[0], -go[1], go[0], 0.f};
-      for (int a = 0; a < 3; ++a)
-        for (int c2 = a; c2 < 3; ++c2) {
-          float tl = kt_d * ((a == c2 ? rr : 0.f) - go[a] * go[c2]) + kd_d * m[a] * m[c2];
-          float br = (a == c2 ? kt_d : 0.f) + kd_d * nz[a] * nz[c2];
-          IA[b][6 * a + c2] += tl;
-          IA[b][6 * (3 + a) + 3 + c2] += br;
-          if (c2 != a) { IA[b][6 * c2 + a] += tl; IA[b][6 * (3 + c2) + 3 + a] += br; }
-        }
-      for (int a = 0; a < 3; ++a)
-        for (int c2 = 0; c2 < 3; ++c2) {
-          float tr = kt_d * rx[3 * a + c2] + kd_d * m[a] * nz[c2];
-          IA[b][6 * a + 3 + c2] += tr;
-          IA[b][6 * (3 + c2) + a] += tr;
-        }
+        // explicit force f_el - D v, D = kt I + kdm n n^T, into body coords
+        float fw[3], fb[3], nfb[3], nb[3], m[3];
+        for (int k = 0; k < 3; ++k) fw[k] = fel[k] - kt_a * gv[k] - kdm * vn * n[k];
+        m3Tvec(R[b], fw, fb);
+        cross3(go, fb, nfb);
+        for (int k = 0; k < 3; ++k) { pA[b][k] -= nfb[k]; pA[b][3 + k] -= fb[k]; }
+        // implicit damper dt Ds with n in body coords, nb = R^T n (see B1 below)
+        m3Tvec(R[b], n, nb);
+        cross3(go, nb, m);
+        const float kt_d = dt * kt_a, kd_d = dt * kdm;
+        const float rr = go[0] * go[0] + go[1] * go[1] + go[2] * go[2];
+        const float rx[9] = {0.f, -go[2], go[1], go[2], 0.f, -go[0], -go[1], go[0], 0.f};
+        for (int a = 0; a < 3; ++a)
+          for (int c2 = a; c2 < 3; ++c2) {
+            float tl = kt_d * ((a == c2 ? rr : 0.f) - go[a] * go[c2]) + kd_d * m[a] * m[c2];
+            float br = (a == c2 ? kt_d : 0.f) + kd_d * nb[a] * nb[c2];
+            IA[b][6 * a + c2] += tl;
+            IA[b][6 * (3 + a) + 3 + c2] += br;
+            if (c2 != a) { IA[b][6 * c2 + a] += tl; IA[b][6 * (3 + c2) + 3 + a] += br; }
+          }
+        for (int a = 0; a < 3; ++a)
+          for (int c2 = 0; c2 < 3; ++c2) {
+            float tr = kt_d * rx[3 * a + c2] + kd_d * m[a] * nb[c2];
+            IA[b][6 * a + 3 + c2] += tr;
+            IA[b][6 * (3 + c2) + a] += tr;
+          }
+      } else {
+        float depth = (h0 + rad) - gp[2];
+        float active = depth > 0.f ? 1.f : 0.f;
+        float depth_a = fminf(fmaxf(depth, 0.f), 2.f * rad + 0.05f);
+        float vn = gv[2];
+        float vt_norm = sqrtf(gv[0] * gv[0] + gv[1] * gv[1]);
+        float fn_el = kp * depth_a;
+        float kd_g = fminf(kd, fn_el / fmaxf(vn, 1e-6f));
+        float fn_est = fmaxf(fn_el - kd_g * vn, 0.f) * active;
+        float kt_eff = fminf(ktmax, mu * fn_est / fmaxf(vt_norm, 1e-3f));
+        float* anc = s + AN + 2 * g;
+        float dx = gp[0] - anc[0], dy = gp[1] - anc[1];
+        float dn = sqrtf(dx * dx + dy * dy);
+        float budget = fmaxf(mu * fn_est - kt_eff * vt_norm, 0.f);
+        float cf = fminf(1.f, budget / fmaxf(kts * dn, 1e-9f));
+        float fsx = -kts * cf * active * dx, fsy = -kts * cf * active * dy;
+        float kt_a = kt_eff * active, kdm = (kd_g - kt_eff) * active;
+        float fz_el = fn_el * active;
+        if (active > 0.f) { anc[0] = gp[0] - cf * dx; anc[1] = gp[1] - cf * dy; }
+        else { anc[0] = gp[0]; anc[1] = gp[1]; }
+        float* st = gst[g];
+        st[0] = gv[0]; st[1] = gv[1]; st[2] = gv[2];
+        st[3] = fz_el; st[4] = kt_a; st[5] = kdm; st[6] = active; st[7] = fsx; st[8] = fsy;
+
+        // explicit force f_el - D v (n = z), into body coords at the body origin
+        float fw[3] = {fsx - kt_a * gv[0], fsy - kt_a * gv[1], fz_el - (kt_a + kdm) * gv[2]};
+        float fb[3], nfb[3];
+        m3Tvec(R[b], fw, fb);
+        cross3(go, fb, nfb);
+        for (int k = 0; k < 3; ++k) { pA[b][k] -= nfb[k]; pA[b][3 + k] -= fb[k]; }
+        // implicit damper dt Ds, Ds = [[rx D rx^T, rx D], [D rx^T, D]], with
+        // D = kt I + kdm n n^T in body coords (n = R^T z, the third row of R), so
+        // rx D rx^T = kt (|r|^2 I - r r^T) + kdm m m^T and rx D = kt rx + kdm m n^T, m = r x n
+        const float* nz = R[b] + 6;
+        float m[3];
+        cross3(go, nz, m);
+        const float kt_d = dt * kt_a, kd_d = dt * kdm;
+        const float rr = go[0] * go[0] + go[1] * go[1] + go[2] * go[2];
+        const float rx[9] = {0.f, -go[2], go[1], go[2], 0.f, -go[0], -go[1], go[0], 0.f};
+        for (int a = 0; a < 3; ++a)
+          for (int c2 = a; c2 < 3; ++c2) {
+            float tl = kt_d * ((a == c2 ? rr : 0.f) - go[a] * go[c2]) + kd_d * m[a] * m[c2];
+            float br = (a == c2 ? kt_d : 0.f) + kd_d * nz[a] * nz[c2];
+            IA[b][6 * a + c2] += tl;
+            IA[b][6 * (3 + a) + 3 + c2] += br;
+            if (c2 != a) { IA[b][6 * c2 + a] += tl; IA[b][6 * (3 + c2) + 3 + a] += br; }
+          }
+        for (int a = 0; a < 3; ++a)
+          for (int c2 = 0; c2 < 3; ++c2) {
+            float tr = kt_d * rx[3 * a + c2] + kd_d * m[a] * nz[c2];
+            IA[b][6 * a + 3 + c2] += tr;
+            IA[b][6 * (3 + c2) + a] += tr;
+          }
+      }
     }
 
     // ---- explicit gravity ----
@@ -453,10 +575,20 @@ PHYS_HD void env_control_step(const float* tf, const int* ti, float* s, const fl
         for (int k = 0; k < 3; ++k) apt[k] = A[b][3 + k] + t1[k] + t2[k] + t3[k];
         m3vec(R[b], apt, aw);
         float vx = st[0] + dt * aw[0], vy = st[1] + dt * aw[1], vz = st[2] + dt * aw[2];
-        float act_ = st[6];
-        gf[3 * g + 0] = (st[7] - st[4] * vx) * act_;
-        gf[3 * g + 1] = (st[8] - st[4] * vy) * act_;
-        gf[3 * g + 2] = (st[3] - (st[4] + st[5]) * vz) * act_;
+        if constexpr (ROUGH) {
+          // (f_el - D v_new) on active contacts, D = kt I + kdm n n^T
+          const float* n = st + 6;
+          float vnn = vx * n[0] + vy * n[1] + vz * n[2];
+          float act_ = st[11];
+          gf[3 * g + 0] = (st[3] - (st[9] * vx + st[10] * vnn * n[0])) * act_;
+          gf[3 * g + 1] = (st[4] - (st[9] * vy + st[10] * vnn * n[1])) * act_;
+          gf[3 * g + 2] = (st[5] - (st[9] * vz + st[10] * vnn * n[2])) * act_;
+        } else {
+          float act_ = st[6];
+          gf[3 * g + 0] = (st[7] - st[4] * vx) * act_;
+          gf[3 * g + 1] = (st[8] - st[4] * vy) * act_;
+          gf[3 * g + 2] = (st[3] - (st[4] + st[5]) * vz) * act_;
+        }
       }
     }
 
@@ -496,10 +628,13 @@ PHYS_HD void env_control_step(const float* tf, const int* ti, float* s, const fl
 #ifdef __CUDACC__
 #define MAX_NS (13 + 2 * MAX_NJ + 2 * MAX_NG)
 
+// One thread per env; ROUGH = false is B1 (flat ground, `tex` unused), true is
+// B2 (heightfield `tex`).
+template <bool ROUGH>
 __global__ void __launch_bounds__(32, 1) decimated_step_kernel(
     const float* __restrict__ state_in, const float* __restrict__ act,
     const float* __restrict__ fric, const float* __restrict__ delta,
-    const float* __restrict__ tf, const int* __restrict__ ti,
+    const float* __restrict__ tf, const int* __restrict__ ti, const float4* __restrict__ tex,
     float* __restrict__ state_out, float* __restrict__ tau_out, float* __restrict__ gf_out,
     float* __restrict__ fpos_out, float* __restrict__ fvel_out, int B) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
@@ -510,7 +645,7 @@ __global__ void __launch_bounds__(32, 1) decimated_step_kernel(
   float s[MAX_NS], a[MAX_NJ], tau[MAX_NJ], gf[3 * MAX_NG], fp[3 * MAX_NF], fv[3 * MAX_NF];
   for (int r = 0; r < NS; ++r) s[r] = state_in[(size_t)r * B + e];
   for (int j = 0; j < nj; ++j) a[j] = act[(size_t)j * B + e] * ascale;
-  env_control_step(tf, ti, s, a, fric[e], delta[e], tau, gf, fp, fv);
+  env_control_step<ROUGH>(tf, ti, tex, s, a, fric[e], delta[e], tau, gf, fp, fv);
   for (int r = 0; r < NS; ++r) state_out[(size_t)r * B + e] = s[r];
   for (int j = 0; j < nj; ++j) tau_out[(size_t)j * B + e] = tau[j];
   for (int r = 0; r < 3 * ng; ++r) gf_out[(size_t)r * B + e] = gf[r];
@@ -529,17 +664,35 @@ int physics_table_layout(int* out) {
   return 0;
 }
 
-// One control step for B envs on `stream`.  All pointers are device pointers
-// to contiguous float32 (int32 for ti) SoA arrays [rows, B].  Returns the
-// launch's cudaGetLastError().
+// One flat control step (B1) for B envs on `stream`.  All pointers are device
+// pointers to contiguous float32 (int32 for ti) SoA arrays [rows, B].  Returns
+// the launch's cudaGetLastError().
 int physics_decimated_step(const float* state_in, const float* act, const float* fric,
                            const float* delta, const float* tf, const int* ti,
                            float* state_out, float* tau_out, float* gf_out, float* fpos_out,
                            float* fvel_out, int B, void* stream) {
   if (B <= 0) return 0;
   const int threads = 32;
-  decimated_step_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-      state_in, act, fric, delta, tf, ti, state_out, tau_out, gf_out, fpos_out, fvel_out, B);
+  decimated_step_kernel<false><<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+      state_in, act, fric, delta, tf, ti, nullptr, state_out, tau_out, gf_out, fpos_out,
+      fvel_out, B);
+  return (int)cudaGetLastError();
+}
+
+// One rough control step (B2): as physics_decimated_step, plus `tex`, the
+// corner-packed heightfield [H*W, 4] float32 (16-byte aligned), whose H, W,
+// spacing and origin are in the tables.
+int physics_decimated_step_rough(const float* state_in, const float* act, const float* fric,
+                                 const float* delta, const float* tf, const int* ti,
+                                 const float* tex, float* state_out, float* tau_out,
+                                 float* gf_out, float* fpos_out, float* fvel_out, int B,
+                                 void* stream) {
+  if (B <= 0) return 0;
+  const int threads = 32;
+  decimated_step_kernel<true><<<(B + threads - 1) / threads, threads, 0,
+                               (cudaStream_t)stream>>>(
+      state_in, act, fric, delta, tf, ti, reinterpret_cast<const float4*>(tex), state_out,
+      tau_out, gf_out, fpos_out, fvel_out, B);
   return (int)cudaGetLastError();
 }
 

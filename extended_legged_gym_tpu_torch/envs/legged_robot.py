@@ -1,11 +1,12 @@
-"""Legged-robot environment, flat subset (port of ``envs/legged_robot.py``).
+"""Legged-robot environment (port of ``envs/legged_robot.py``): flat ground
+and the rough-terrain subset.
 
 The env object holds static configuration (model, terrain, index sets,
 reward table) and the env's random generator; ``reset_all`` and ``step`` map
 an :class:`EnvState` of ``[B, ...]`` tensors to a new one, as the JAX env's
 pure functions do.  Physics runs through the fused decimated step
-(``ops/physics_kernel.py``): the CUDA kernel on the card, its plain version on
-the CPU.
+(``ops/physics_kernel.py``): the CUDA kernel on the card (B1 on flat ground,
+B2 on a heightfield), its plain version on the CPU.
 
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
@@ -16,9 +17,18 @@ Semantics kept from the JAX env, reference quirks included:
 * resets re-draw dof pos in [0.5, 1.5]×default, root velocities in ±0.5 and
   commands;
 * the main env never updates ``last_actions`` / ``last_dof_vel`` after a
-  reset (they stay zero, as in the JAX env); rollouts update them each step.
+  reset (they stay zero, as in the JAX env); rollouts update them each step;
+* on ``heightfield`` / ``trimesh`` terrains (both contact the generated
+  heightfield): the curriculum grid of ``terrain/generator.py``, envs spawned
+  on their (level, type) origins with a ±0.5 m xy offset, the spawn levels
+  drawn from the generator's numpy stream right after the grid, the height
+  scan (``measure_heights``) under the yaw-rotated grid of measured points,
+  appended to the observation as ``clip(z - 0.5 - h, -1, 1)`` times its scale;
+* staged reward scales (``multi_stage_rewards``), selected by the state's
+  ``reward_stage``.
 
-Not in this slice (the constructor raises): rough terrain and height scans,
+Not ported yet (the constructor raises): terrain-curriculum promotion
+(``curriculum`` without ``freeze_terrain_levels``), triangle-mesh contacts,
 heading commands, command curriculum, domain randomization, pushes,
 observation noise, privileged observations, a termination reward, V control.
 """
@@ -30,16 +40,18 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops.physics_kernel import make_decimated_env_step
 from ..physics.contact import default_contact_params
 from ..physics.engine import EnvPhysParams, PhysState, StepReport, default_sim_params
 from ..physics.model import geom_indices_matching
 from ..physics.serialize import load_model
-from ..terrain.heightfield import flat_terrain
+from ..terrain.generator import Terrain
+from ..terrain.heightfield import flat_terrain, sample_height
 from ..utils.config import class_to_dict
 from ..utils.device import resolve_device
-from ..utils.math import quat_rotate_inverse
+from ..utils.math import quat_apply_yaw, quat_rotate_inverse
 from ..utils.tree import tree_map
 from .legged_robot_config import LeggedRobotCfg
 
@@ -72,6 +84,10 @@ class EnvState:
     episode_sums: Dict[str, torch.Tensor]
     episode_return: torch.Tensor     # [B]
     env_origins: torch.Tensor        # [B, 3]
+    measured_heights: Optional[torch.Tensor] = None  # [B, P] terrain under the height scan
+    terrain_levels: Optional[torch.Tensor] = None    # [B] int64
+    terrain_types: Optional[torch.Tensor] = None     # [B] int64
+    reward_stage: Optional[torch.Tensor] = None      # scalar int64 (staged rewards)
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -99,7 +115,13 @@ class LeggedRobot:
 
         self.model = model = load_model(cfg.asset.file)
         self.num_dof = model.nj
-        self.terrain = flat_terrain(friction=cfg.terrain.static_friction)
+        self.terrain_gen: Optional[Terrain] = None
+        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
+            self.terrain_gen = Terrain(cfg.terrain, self.num_envs, seed=cfg.seed)
+            self.terrain = self.terrain_gen.to_device(cfg.terrain.static_friction)
+        else:
+            self.terrain = flat_terrain(friction=cfg.terrain.static_friction)
+        self.custom_origins = self.terrain_gen is not None
 
         self.sim_params = default_sim_params(
             dt=cfg.sim.dt, gravity=tuple(cfg.sim.gravity),
@@ -129,14 +151,17 @@ class LeggedRobot:
             geom_indices_matching(model, cfg.asset.penalize_contacts_on), dtype=torch.int64,
             device=self.device)
 
-        # grid origins on the plane
-        n = int(np.ceil(np.sqrt(self.num_envs)))
-        xx, yy = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
-        origins = np.zeros((self.num_envs, 3), np.float32)
-        origins[:, 0] = cfg.env.env_spacing * xx.ravel()[: self.num_envs]
-        origins[:, 1] = cfg.env.env_spacing * yy.ravel()[: self.num_envs]
-        origins[:, :2] -= origins[:, :2].mean(axis=0, keepdims=True)
-        self.grid_origins = torch.as_tensor(origins, device=self.device)
+        # height scan points [P, 2] in the base's yaw frame
+        if cfg.terrain.measure_heights:
+            gx, gy = np.meshgrid(cfg.terrain.measured_points_x, cfg.terrain.measured_points_y,
+                                 indexing="ij")
+            pts = np.stack([gx.ravel(), gy.ravel()], axis=-1).astype(np.float32)
+        else:
+            pts = np.zeros((0, 2), np.float32)
+        self.height_points = torch.as_tensor(pts, device=self.device)
+        self.num_height_points = pts.shape[0]
+
+        self._init_env_origins()
 
         rng = cfg.commands.ranges
         self.command_ranges = {k: tuple(float(x) for x in getattr(rng, k))
@@ -161,9 +186,15 @@ class LeggedRobot:
 
     @staticmethod
     def _check_supported(cfg: LeggedRobotCfg):
+        tc = cfg.terrain
+        rough = tc.mesh_type in ("heightfield", "trimesh")
         unsupported = {
-            "terrain.mesh_type not plane": cfg.terrain.mesh_type not in ("plane", "none"),
-            "terrain.measure_heights": cfg.terrain.measure_heights,
+            f"terrain.mesh_type {tc.mesh_type!r}": tc.mesh_type not in (
+                "plane", "none", "heightfield", "trimesh"),
+            "terrain-curriculum promotion (terrain.curriculum without "
+            "terrain.freeze_terrain_levels)": rough and tc.curriculum and not tc.freeze_terrain_levels,
+            "triangle-mesh contacts (terrain.trimesh_contacts)": tc.trimesh_contacts,
+            "control.control_type V": cfg.control.control_type == "V",
             "commands.heading_command": cfg.commands.heading_command,
             "commands.curriculum": cfg.commands.curriculum,
             "domain_rand.randomize_friction": cfg.domain_rand.randomize_friction,
@@ -177,17 +208,58 @@ class LeggedRobot:
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
+    def _init_env_origins(self):
+        """Spawn origins: on a generated terrain, (level, type) cells, the
+        levels drawn from the generator's stream right after the grid; on a
+        plane, a centred square grid."""
+        if self.custom_origins:
+            tg = self.terrain_gen
+            max_init = min(self.cfg.terrain.max_init_terrain_level, tg.num_rows - 1)
+            levels = tg.rng.randint(0, max_init + 1, self.num_envs)
+            types = np.arange(self.num_envs) % tg.num_cols
+            self.terrain_origins = torch.as_tensor(np.asarray(tg.env_origins, np.float32),
+                                                   device=self.device)
+        else:
+            n = int(np.ceil(np.sqrt(self.num_envs)))
+            xx, yy = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+            origins = np.zeros((self.num_envs, 3), np.float32)
+            origins[:, 0] = self.cfg.env.env_spacing * xx.ravel()[: self.num_envs]
+            origins[:, 1] = self.cfg.env.env_spacing * yy.ravel()[: self.num_envs]
+            origins[:, :2] -= origins[:, :2].mean(axis=0, keepdims=True)
+            self.grid_origins = torch.as_tensor(origins, device=self.device)
+            levels = types = np.zeros(self.num_envs)
+        self.init_terrain_levels = torch.as_tensor(levels, dtype=torch.int64, device=self.device)
+        self.init_terrain_types = torch.as_tensor(types, dtype=torch.int64, device=self.device)
+
+    def _compute_env_origins(self, levels: torch.Tensor, types: torch.Tensor) -> torch.Tensor:
+        if self.custom_origins:
+            return self.terrain_origins[levels, types]
+        return self.grid_origins
+
     def _prepare_reward_functions(self):
+        """Active terms (non-zero at some stage) and their scales times dt,
+        one row per stage: ``reward_scale_table`` [stages, terms];
+        ``reward_scales`` is stage 0's row."""
         scales = class_to_dict(self.cfg.rewards.scales)
+        multi = self.cfg.rewards.multi_stage_rewards
+        n_stages = self.cfg.rewards.reward_max_stage + 1 if multi else 1
+
+        def at_stage(v, stage):
+            if isinstance(v, (list, tuple)):
+                return v[min(stage, len(v) - 1)] if multi else v[-1]
+            return v
+
         names = []
         for name, v in scales.items():
-            if v != 0 and name != "termination":
+            if name != "termination" and any(at_stage(v, k) != 0 for k in range(n_stages)):
                 if not hasattr(self, f"_reward_{name}"):
                     raise ValueError(f"reward term '{name}' has no _reward_{name} implementation")
                 names.append(name)
         self.reward_names = names
-        self.reward_scales = torch.tensor([scales[n] * self.dt for n in names],
-                                          dtype=torch.float32, device=self.device)
+        self.reward_scale_table = torch.tensor(
+            [[at_stage(scales[n], k) * self.dt for n in names] for k in range(n_stages)],
+            dtype=torch.float32, device=self.device).reshape(n_stages, len(names))
+        self.reward_scales = self.reward_scale_table[0]
 
     def _uniform(self, shape, lo, hi) -> torch.Tensor:
         u = torch.rand(shape, generator=self.generator, device=self.device)
@@ -200,7 +272,9 @@ class LeggedRobot:
             self.generator.manual_seed(seed)
         B, dev = self.num_envs, self.device
         all_envs = torch.ones(B, dtype=torch.bool, device=dev)
-        phys = self._sample_init_phys(self.grid_origins)
+        levels, types = self.init_terrain_levels, self.init_terrain_types
+        env_origins = self._compute_env_origins(levels, types)
+        phys = self._sample_init_phys(env_origins)
         commands = self._sample_commands(torch.zeros(B, 4, device=dev), all_envs)
         nf, ng = self.num_feet, self.model.ng
         z = lambda *s: torch.zeros(*s, device=dev)
@@ -219,7 +293,9 @@ class LeggedRobot:
             reset_buf=torch.zeros(B, dtype=torch.bool, device=dev),
             time_out_buf=torch.zeros(B, dtype=torch.bool, device=dev),
             episode_sums={n: z(B) for n in self.reward_names},
-            episode_return=z(B), env_origins=self.grid_origins)
+            episode_return=z(B), env_origins=env_origins,
+            measured_heights=z(B, self.num_height_points), terrain_levels=levels,
+            terrain_types=types, reward_stage=torch.zeros((), dtype=torch.int64, device=dev))
         state = self._refresh_derived(state)
         return state.replace(obs=self._compute_observations(state))
 
@@ -231,6 +307,8 @@ class LeggedRobot:
         lin_vel = init[7:10] + self._uniform((B, 3), -0.5, 0.5)
         ang_vel = init[10:13] + self._uniform((B, 3), -0.5, 0.5)
         dof_pos = self.default_dof_pos * self._uniform((B, self.num_dof), 0.5, 1.5)
+        if self.custom_origins:
+            pos = pos + F.pad(self._uniform((B, 2), -0.5, 0.5), (0, 1))
         anchor = pos[:, None, :2].expand(B, self.model.ng, 2).clone()
         return PhysState(base_pos=pos, base_quat=quat, joint_pos=dof_pos, base_lin_vel=lin_vel,
                          base_ang_vel=ang_vel, joint_vel=torch.zeros(B, self.num_dof, device=self.device),
@@ -274,7 +352,16 @@ class LeggedRobot:
         if report is not None:
             upd.update(foot_positions=report.foot_pos, foot_velocities=report.foot_vel,
                        geom_forces=report.geom_forces)
+        if self.num_height_points:
+            upd["measured_heights"] = self._get_heights(phys)
         return state.replace(**upd)
+
+    def _get_heights(self, phys: PhysState) -> torch.Tensor:
+        """Terrain heights [B, P] under the yaw-rotated measurement grid."""
+        pts3 = F.pad(self.height_points, (0, 1))
+        world = quat_apply_yaw(phys.base_quat[:, None, :], pts3[None, :, :])
+        world = world + phys.base_pos[:, None, :]
+        return sample_height(self.terrain, world[..., :2])
 
     def _post_physics_step(self, state: EnvState) -> EnvState:
         state = state.replace(episode_length=state.episode_length + 1)
@@ -289,7 +376,8 @@ class LeggedRobot:
             base_lin_vel=nan0(state.base_lin_vel), base_ang_vel=nan0(state.base_ang_vel),
             projected_gravity=nan0(state.projected_gravity),
             geom_forces=nan0(state.geom_forces), foot_positions=nan0(state.foot_positions),
-            foot_velocities=nan0(state.foot_velocities), torques=nan0(state.torques))
+            foot_velocities=nan0(state.foot_velocities), torques=nan0(state.torques),
+            measured_heights=tree_map(nan0, state.measured_heights))
 
         state, rew = self._compute_reward(state)
         state = state.replace(rew=rew, episode_return=state.episode_return + rew)
@@ -329,7 +417,7 @@ class LeggedRobot:
     def _compute_observations(self, state) -> torch.Tensor:
         os_ = self.cfg.normalization.obs_scales
         cmd_scale = torch.tensor([os_.lin_vel, os_.lin_vel, os_.ang_vel], device=self.device)
-        return torch.cat([
+        parts = [
             state.base_lin_vel * os_.lin_vel,
             state.base_ang_vel * os_.ang_vel,
             state.projected_gravity,
@@ -337,7 +425,11 @@ class LeggedRobot:
             (state.phys.joint_pos - self.default_dof_pos) * os_.dof_pos,
             state.phys.joint_vel * os_.dof_vel,
             state.actions,
-        ], dim=-1)
+        ]
+        if self.num_height_points:
+            parts.append(torch.clamp(state.phys.base_pos[:, 2:3] - 0.5 - state.measured_heights,
+                                     -1.0, 1.0) * os_.height_measurements)
+        return torch.cat(parts, dim=-1)
 
     # ------------------------------------------------------------------ rewards
     def _contact_context(self, s):
@@ -349,9 +441,11 @@ class LeggedRobot:
                     feet_air_time=s.feet_air_time + self.dt,
                     feet_contact_time=s.feet_contact_time + self.dt)
 
-    def _reward_sum(self, s, ctx) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Scaled terms and their sum (with the only-positive clip)."""
-        terms = {name: getattr(self, f"_reward_{name}")(s, ctx) * self.reward_scales[j]
+    def _reward_sum(self, s, ctx, stage=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Scaled terms (at reward ``stage``, default 0) and their sum (with the
+        only-positive clip)."""
+        scales = self.reward_scales if stage is None else self.reward_scale_table[stage]
+        terms = {name: getattr(self, f"_reward_{name}")(s, ctx) * scales[j]
                  for j, name in enumerate(self.reward_names)}
         rew = torch.zeros(s.phys.base_pos.shape[0], device=self.device)
         for t in terms.values():
@@ -363,14 +457,14 @@ class LeggedRobot:
     def _compute_reward(self, state: EnvState) -> Tuple[EnvState, torch.Tensor]:
         ctx = self._contact_context(state)
         state = state.replace(last_contacts=ctx["contact"])
-        rew, terms = self._reward_sum(state, ctx)
+        rew, terms = self._reward_sum(state, ctx, state.reward_stage)
         sums = {k: v + terms[k] for k, v in state.episode_sums.items()}
         state = state.replace(feet_air_time=ctx["feet_air_time"] * ~ctx["contact_filt"],
                               feet_contact_time=ctx["feet_contact_time"] * ctx["contact_filt"],
                               episode_sums=sums)
         return state, rew
 
-    # --- reward terms the flat sampling-MPC config scales ---
+    # --- reward terms the flat sampling-MPC and rough configs scale ---
     def _reward_lin_vel_z(self, s, ctx):
         return torch.square(s.base_lin_vel[:, 2])
 
@@ -379,6 +473,13 @@ class LeggedRobot:
 
     def _reward_orientation(self, s, ctx):
         return torch.sum(torch.square(s.projected_gravity[:, :2]), dim=1)
+
+    def _reward_base_height(self, s, ctx):
+        if self.num_height_points:
+            ground = torch.mean(s.measured_heights, dim=1)
+        else:
+            ground = sample_height(self.terrain, s.phys.base_pos[:, :2])
+        return torch.square(s.phys.base_pos[:, 2] - ground - self.cfg.rewards.base_height_target)
 
     def _reward_torques(self, s, ctx):
         return torch.sum(torch.square(s.torques), dim=1)

@@ -2,8 +2,9 @@
 ``envs/legged_robot_config.py``).
 
 Field names and defaults match the JAX package.  Only the groups and fields
-that the flat sampling-MPC slice reads are here; the env raises on the
-settings this slice does not implement (those fields stay so it can).
+that the ported slices (flat sampling MPC, rough-terrain policy evaluation)
+read are here; the env raises on the settings the port does not implement yet
+(those fields stay so it can).
 """
 from __future__ import annotations
 
@@ -24,10 +25,30 @@ class EnvCfg:
 
 @configclass
 class TerrainCfg:
-    mesh_type: str = "trimesh"   # the port runs "plane" / "none" only
+    mesh_type: str = "trimesh"   # none/plane, heightfield, trimesh (contacts on the heightfield)
+    horizontal_scale: float = 0.1
+    vertical_scale: float = 0.005
+    border_size: float = 25.0
     curriculum: bool = True
     static_friction: float = 1.0
     measure_heights: bool = True
+    measured_points_x: List[float] = [-0.8, -0.7, -0.6, -0.5, -0.4, -0.3, -0.2, -0.1,
+                                      0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8]
+    measured_points_y: List[float] = [-0.5, -0.4, -0.3, -0.2, -0.1, 0.0, 0.1, 0.2, 0.3, 0.4, 0.5]
+    selected: bool = False
+    terrain_kwargs: Optional[dict] = None
+    max_init_terrain_level: int = 5
+    # pin every env to its spawn row while keeping the curriculum grid (the
+    # evaluation protocol); curriculum=False would regenerate the grid in
+    # randomized mode instead
+    freeze_terrain_levels: bool = False
+    terrain_length: float = 5.0
+    terrain_width: float = 5.0
+    num_rows: int = 8   # curriculum levels
+    num_cols: int = 8   # terrain types
+    # [smooth slope, rough slope, stairs up, stairs down, discrete]
+    terrain_proportions: List[float] = [0.1, 0.1, 0.35, 0.25, 0.2]
+    trimesh_contacts: bool = False   # contacts on a true triangle mesh (not ported)
 
 
 @configclass
@@ -79,6 +100,7 @@ class AssetCfg:
 class DomainRandCfg:
     randomize_friction: bool = True
     randomize_base_mass: bool = False
+    added_mass_range: List[float] = [-1.0, 1.0]
     push_robots: bool = True
 
 
@@ -108,6 +130,12 @@ class RewardsCfg:
     tracking_sigma: float = 0.25
     base_height_target: float = 1.0
     max_contact_force: float = 100.0
+    # staged scales: a scale may be a list, one value per stage; the env's
+    # state carries the stage (a single-stage env takes each list's last value)
+    multi_stage_rewards: bool = False
+    reward_stage_threshold: float = 6.0
+    reward_min_stage: int = 0
+    reward_max_stage: int = 0
 
 
 @configclass
@@ -116,6 +144,7 @@ class ObsScalesCfg:
     ang_vel: float = 0.25
     dof_pos: float = 1.0
     dof_vel: float = 0.05
+    height_measurements: float = 5.0
 
 
 @configclass
@@ -155,3 +184,28 @@ class LeggedRobotCfg:
     normalization: NormalizationCfg = NormalizationCfg()
     noise: NoiseCfg = NoiseCfg()
     sim: SimCfg = SimCfg()
+
+
+# ---------------------------------------------------------------------------
+# Policy and runner settings (the part of the JAX package's PPO config that
+# building and loading a policy reads; the algorithm settings come with PPO)
+# ---------------------------------------------------------------------------
+
+@configclass
+class PolicyCfg:
+    actor_hidden_dims: List[int] = [512, 256, 128]
+    critic_hidden_dims: List[int] = [512, 256, 128]
+    activation: str = "elu"
+
+
+@configclass
+class RunnerCfg:
+    max_iterations: int = 1500
+    experiment_name: str = "test"
+
+
+@configclass
+class LeggedRobotCfgPPO:
+    seed: int = 1
+    policy: PolicyCfg = PolicyCfg()
+    runner: RunnerCfg = RunnerCfg()

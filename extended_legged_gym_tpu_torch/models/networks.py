@@ -71,9 +71,18 @@ def load_jax_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """Read a ``.pkl`` written by the JAX runner and return an
     :class:`ActorCritic` ``state_dict``.  Only ``params`` is read; the
     optimizer state's JAX/flax/optax objects load as stubs, so neither JAX
-    nor the JAX package is imported."""
+    nor the JAX package is imported.
+
+    Raises ``ValueError`` for a checkpoint that carries an observation
+    normalizer (``obs_norm``, written when training with empirical
+    normalization): its policy expects normalised observations, and the port
+    does not apply a normalizer yet."""
     with open(path, "rb") as f:
         payload = _CheckpointUnpickler(f).load()
+    if payload.get("obs_norm") is not None:
+        raise ValueError(f"{path}: the checkpoint carries an observation normalizer (obs_norm); "
+                         "the port does not apply one yet, so its policy would act on "
+                         "unnormalised observations")
     params = payload["params"]
     params = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}

@@ -1,14 +1,22 @@
-"""Fused, decimated flat-terrain physics step (port of ``ops/physics_kernel.py``).
+"""Fused, decimated physics step on flat ground or a heightfield (port of
+``ops/physics_kernel.py``).
 
 :func:`make_decimated_env_step` is the counterpart of the JAX function of the
 same name: PD torques plus ``decimation`` physics substeps per call.  The
 returned :class:`DecimatedEnvStep` takes ``(phys, actions, env_params)`` and
 returns ``(new_phys, tau_last, report)``:
 
-* on CUDA tensors it launches the hand-written kernel
-  ``csrc/physics_step.cu`` once per call (or raises);
+* on CUDA tensors it launches one hand-written kernel of
+  ``csrc/physics_step.cu`` once per call (or raises): B1 on a flat terrain,
+  B2 on a heightfield, whose corner-packed texture it keeps on the device;
 * on CPU tensors it runs the plain version, ``physics/aba.py`` once per
   substep.
+
+On a heightfield the JAX package's fused step carries each geom's position
+from the previous control step and samples one tangent plane there per
+control step; the port's B2, like the ABA engine, samples the heightfield at
+the current geom position in every substep, so the env state has no
+``geom_pos``.
 
 The kernel is built with nvcc into a shared library with a plain C interface
 at first use and loaded with ctypes; the build goes into ``_build/`` beside
@@ -41,7 +49,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 # table layout, mirrored from csrc/physics_step.cu
 MAX_NB, MAX_NJ, MAX_NG, MAX_NF = 32, 31, 64, 8
-TI_NB, TI_NJ, TI_NG, TI_NF, TI_DECIM, TI_CTRL = range(6)
+TI_NB, TI_NJ, TI_NG, TI_NF, TI_DECIM, TI_CTRL, TI_TH, TI_TW = range(8)
 TI_PARENT = 8
 TI_GBODY = TI_PARENT + MAX_NB
 TI_FGEOM = TI_GBODY + MAX_NG
@@ -64,7 +72,10 @@ TF_DDP = TF_DGAIN + MAX_NJ
 TF_GOFF = TF_DDP + MAX_NJ
 TF_GRAD = TF_GOFF + MAX_NG * 3
 TF_FOFF = TF_GRAD + MAX_NG
-TF_SIZE = TF_FOFF + MAX_NF * 3
+TF_HS = TF_FOFF + MAX_NF * 3
+TF_ORG = TF_HS + 1
+TF_GMAX = TF_ORG + 2
+TF_SIZE = TF_GMAX + 2
 CONTROL_TYPES = {"P": 0, "T": 1}
 
 _libs = {}
@@ -123,6 +134,9 @@ def load_library(source: str = SOURCE) -> ctypes.CDLL:
         lib.physics_table_layout.restype = ctypes.c_int
         lib.physics_decimated_step.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
         lib.physics_decimated_step.restype = ctypes.c_int
+        lib.physics_decimated_step_rough.argtypes = ([ctypes.c_void_p] * 12
+                                                     + [ctypes.c_int, ctypes.c_void_p])
+        lib.physics_decimated_step_rough.restype = ctypes.c_int
         layout = (ctypes.c_int * 6)()
         lib.physics_table_layout(ctypes.addressof(layout))
         want = (MAX_NB, MAX_NJ, MAX_NG, MAX_NF, TI_SIZE, TF_SIZE)
@@ -132,12 +146,14 @@ def load_library(source: str = SOURCE) -> ctypes.CDLL:
     return _libs[source]
 
 
-def control_step_flops(nb: int, nj: int, ng: int, nf: int, decimation: int) -> int:
+def control_step_flops(nb: int, nj: int, ng: int, nf: int, decimation: int,
+                       rough: bool = False) -> int:
     """Float operations one env's control step needs (PD torques, clamps and
     ``decimation`` substeps; the report on the last).  Each add, multiply,
-    min/max, divide, square root, sine or cosine counts one.  The 6x6 and 3x3
-    products are counted blockwise: zero blocks, the zeros of skew matrices
-    and the mirrored half of symmetric results cost nothing."""
+    min/max, divide, square root, sine, cosine or floor counts one.  The 6x6
+    and 3x3 products are counted blockwise: zero blocks, the zeros of skew
+    matrices and the mirrored half of symmetric results cost nothing.
+    ``rough`` counts B2: the heightfield sample and the general normal."""
     per_sub = (13 * nj               # torques and clamp (7); joint integration (6)
                + 407                 # base frame (60), mass delta (43), 6x6 Cholesky solve (175),
                                      # base integration and exp-map quaternion (129)
@@ -150,15 +166,36 @@ def control_step_flops(nb: int, nj: int, ng: int, nf: int, decimation: int) -> i
                + 247 * ng)           # per geom: point position and velocity (45); penalty,
                                      # caps and stiction (50); wrench (37); damper dt Ds (115)
     report = nf * 45 + ng * 76       # foot kinematics; implicit-consistent geom forces
+    if rough:
+        per_sub += 98 * ng           # per geom: grid coordinates, clip and floor (12), bilinear
+                                     # height (13), gradient (12), normal (8); v.n, tangential
+                                     # velocity and its norm (13); projected anchor displacement
+                                     # (10); elastic force along n (7); D v with a general n (8);
+                                     # n in body coordinates (15)
+        report += 13 * ng            # D v_new with a general n
     return decimation * per_sub + report
 
 
+def control_step_bytes(nj: int, ng: int, nf: int, decimation: int, rough: bool = False) -> int:
+    """Bytes one env's control step must move: its state read and written,
+    actions, friction and mass delta read, torques, geom forces and foot
+    kinematics written (float32), and for B2 one 16-byte corner read per geom
+    per substep (the texture cells the geoms touch; the tables are extra, once
+    per launch)."""
+    ns = 13 + 2 * nj + 2 * ng
+    per_env = 4 * (2 * ns + 2 * nj + 2 + 3 * ng + 6 * nf)
+    return per_env + (16 * ng * decimation if rough else 0)
+
+
 class DecimatedEnvStep:
-    """One control step of B envs on flat ground: PD (or direct) torques,
-    clamped to the model's torque limits, and ``decimation`` physics substeps.  ``DecimatedEnvStep.launches`` counts the
-    kernel launches of all instances."""
+    """One control step of B envs: PD (or direct) torques, clamped to the
+    model's torque limits, and ``decimation`` physics substeps, on flat ground
+    (kernel B1) or on a heightfield (kernel B2).  ``DecimatedEnvStep.launches``
+    counts the B1 launches of all instances, ``DecimatedEnvStep.rough_launches``
+    the B2 launches."""
 
     launches = 0
+    rough_launches = 0
 
     def __init__(self, model: RobotModel, sp: SimParams, terrain: TerrainData, decimation: int,
                  p_gains, d_gains, default_dof_pos, action_scale: float,
@@ -172,6 +209,9 @@ class DecimatedEnvStep:
         if nb > MAX_NB or nj > MAX_NJ or ng > MAX_NG or nf > MAX_NF:
             raise ValueError(f"model sizes nb={nb} nj={nj} ng={ng} nf={nf} exceed the kernel's "
                              f"maxima {MAX_NB}/{MAX_NJ}/{MAX_NG}/{MAX_NF}")
+        self.rough = not terrain.is_flat
+        if self.rough and terrain.shape[0] * terrain.shape[1] >= 2 ** 31:
+            raise ValueError(f"heightfield {terrain.shape} too large for the kernel's int index")
         self.model, self.sp, self.terrain = model, sp, terrain
         self.decimation, self.action_scale, self.control_type = decimation, float(action_scale), control_type
         self.nf = nf
@@ -183,8 +223,8 @@ class DecimatedEnvStep:
         self._dev = {}
 
         ti = np.zeros(TI_SIZE, np.int32)
-        ti[[TI_NB, TI_NJ, TI_NG, TI_NF, TI_DECIM, TI_CTRL]] = (
-            nb, nj, ng, nf, decimation, CONTROL_TYPES[control_type])
+        ti[[TI_NB, TI_NJ, TI_NG, TI_NF, TI_DECIM, TI_CTRL, TI_TH, TI_TW]] = (
+            nb, nj, ng, nf, decimation, CONTROL_TYPES[control_type], *terrain.shape)
         ti[TI_PARENT:TI_PARENT + nb] = model.parent
         ti[TI_GBODY:TI_GBODY + ng] = model.geom_body
         ti[TI_FGEOM:TI_FGEOM + nf] = fg
@@ -194,7 +234,10 @@ class DecimatedEnvStep:
         tf[TF_G:TF_G + 3] = sp.gravity
         tf[[TF_KP, TF_KD, TF_KT, TF_MU, TF_KTS, TF_JDAMP, TF_H0, TF_ASCALE]] = (
             c.kp, c.kd, c.kt, c.mu * terrain.friction, c.kt_spring, sp.joint_damping,
-            terrain.height, action_scale)
+            terrain.height00, action_scale)
+        tf[TF_HS] = terrain.hscale
+        tf[TF_ORG:TF_ORG + 2] = terrain.origin
+        tf[TF_GMAX:TF_GMAX + 2] = (terrain.shape[0] - 1.001, terrain.shape[1] - 1.001)
         for i in range(nb):
             tf[TF_JROT + 9 * i:TF_JROT + 9 * i + 9] = model.joint_origin_rot[i].reshape(-1)
             tf[TF_JPOS + 3 * i:TF_JPOS + 3 * i + 3] = model.joint_origin_pos[i]
@@ -222,6 +265,8 @@ class DecimatedEnvStep:
             t = {k: torch.as_tensor(v, device=device) for k, v in self._host.items()}
             t["tf"] = torch.as_tensor(self.tf_host, device=device)
             t["ti"] = torch.as_tensor(self.ti_host, device=device)
+            if self.rough:
+                t["tex"] = self.terrain.torch(device)["corner_tex"]
             self._dev[key] = t
         return self._dev[key]
 
@@ -268,8 +313,9 @@ class DecimatedEnvStep:
 
     def launch(self, phys: PhysState, actions: torch.Tensor, env_params: EnvPhysParams,
                lib: Optional[ctypes.CDLL] = None):
-        """Run the CUDA kernel (CUDA tensors only); ``lib`` is a library from
-        :func:`load_library`, by default the package's own source."""
+        """Run the CUDA kernel, B2 on a heightfield, else B1 (CUDA tensors
+        only); ``lib`` is a library from :func:`load_library`, by default the
+        package's own source."""
         lib = lib or load_library()
         dev = phys.base_pos.device
         t = self._tensors(dev)
@@ -287,13 +333,20 @@ class DecimatedEnvStep:
         fvel = torch.empty(3 * nf, B, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.physics_decimated_step(
-            state.data_ptr(), act.data_ptr(), fric.data_ptr(), delta.data_ptr(),
-            t["tf"].data_ptr(), t["ti"].data_ptr(), out.data_ptr(), tau.data_ptr(),
-            gf.data_ptr(), fpos.data_ptr(), fvel.data_ptr(), B, stream)
+        ins = (state.data_ptr(), act.data_ptr(), fric.data_ptr(), delta.data_ptr(),
+               t["tf"].data_ptr(), t["ti"].data_ptr())
+        outs = (out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fpos.data_ptr(), fvel.data_ptr())
+        if self.rough:
+            rc = lib.physics_decimated_step_rough(*ins, t["tex"].data_ptr(), *outs, B, stream)
+        else:
+            rc = lib.physics_decimated_step(*ins, *outs, B, stream)
         if rc != 0:
-            raise RuntimeError(f"physics kernel launch failed: cudaError {rc}")
-        DecimatedEnvStep.launches += 1
+            raise RuntimeError(f"physics kernel {'B2' if self.rough else 'B1'} launch failed: "
+                               f"cudaError {rc}")
+        if self.rough:
+            DecimatedEnvStep.rough_launches += 1
+        else:
+            DecimatedEnvStep.launches += 1
         o = out.T
         new_phys = PhysState(
             base_pos=o[:, 0:3], base_quat=o[:, 3:7], joint_pos=o[:, 7:7 + nj],
@@ -308,7 +361,8 @@ class DecimatedEnvStep:
 def make_decimated_env_step(model: RobotModel, sp: SimParams, terrain: TerrainData,
                             decimation: int, p_gains, d_gains, default_dof_pos,
                             action_scale: float, control_type: str = "P") -> DecimatedEnvStep:
-    """Fused decimated control step on flat ground (JAX counterpart of the
-    same name, without the rough-terrain plane carry)."""
+    """Fused decimated control step (JAX counterpart of the same name, without
+    the rough-terrain geom-position carry): B1 on a flat terrain, B2 on a
+    heightfield."""
     return DecimatedEnvStep(model, sp, terrain, decimation, p_gains, d_gains,
                             default_dof_pos, action_scale, control_type)

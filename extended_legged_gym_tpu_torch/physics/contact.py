@@ -10,7 +10,10 @@ The model, as in the JAX package:
   damper leaves free; where the budget clamps the spring, the anchor slides
   with the point;
 * the damping part is returned as ``D = kt·I + (kd_g − kt)·n nᵀ`` per geom,
-  which the engine folds into the articulated inertias (implicit damping).
+  which the engine folds into the articulated inertias (implicit damping);
+* on a heightfield, ``n`` is the normal of the bilinear patch under the
+  sphere and the gap is vertical; the anchor displacement is projected onto
+  the tangent plane.  A flat terrain gives ``n = z``.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..terrain.heightfield import TerrainData, sample_height
+from ..terrain.heightfield import TerrainData, sample_height_and_normal
 
 
 @dataclass(frozen=True)
@@ -63,10 +66,9 @@ def sphere_terrain_contact(terrain: TerrainData, params: ContactParams,
         anchor = xy
     if mu is None:
         mu = params.mu
-    h = sample_height(terrain, xy)
-    n = torch.zeros_like(pos)
-    n[..., 2] = 1.0                                  # flat terrain normal
+    h, n = sample_height_and_normal(terrain, xy)
 
+    # ground contact: vertical gap of the sphere's lowest point
     depth = (h + radius) - pos[..., 2]
     active = (depth > 0.0).to(pos.dtype)
     depth_a = torch.minimum(depth.clamp(min=0.0), 2.0 * radius + 0.05)

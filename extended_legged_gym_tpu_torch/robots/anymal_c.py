@@ -1,0 +1,61 @@
+"""ANYmal-C rough-terrain task configs (port of the rough configs of
+``robots/anymal_c.py``).
+
+The robot model is read in place from the JAX package's committed JSON."""
+from __future__ import annotations
+
+import os
+
+from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
+
+_DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                     "extended_legged_gym_tpu", "robots", "data")
+
+
+def anymal_c_rough_cfg() -> LeggedRobotCfg:
+    """ANYmal-C on the 8 x 8 curriculum grid (5 m subterrains at 0.1 m, 25 m
+    border: a 900 x 900 heightfield) with the 187-point height scan
+    (235-dim observations), 4096 envs, staged reward scales.  The default
+    joint angles are the model JSON's, as in the JAX env."""
+    cfg = LeggedRobotCfg()
+    cfg.env.num_envs = 4096
+    cfg.env.num_actions = 12
+    cfg.env.num_observations = 235
+    cfg.terrain.mesh_type = "trimesh"
+    cfg.init_state.pos = [0.0, 0.0, 0.6]
+    cfg.control.stiffness = {"HAA": 80.0, "HFE": 80.0, "KFE": 80.0}
+    cfg.control.damping = {"HAA": 2.0, "HFE": 2.0, "KFE": 2.0}
+    cfg.control.action_scale = 0.5
+    cfg.control.decimation = 4
+    cfg.asset.file = os.path.join(_DATA, "anymal_c.json")
+    cfg.asset.name = "anymal_c"
+    cfg.asset.foot_name = "FOOT"
+    cfg.asset.penalize_contacts_on = ["SHANK", "THIGH"]
+    cfg.asset.terminate_after_contacts_on = ["base"]
+    cfg.domain_rand.randomize_base_mass = True
+    cfg.domain_rand.added_mass_range = [-5.0, 5.0]
+    cfg.rewards.base_height_target = 0.5
+    cfg.rewards.max_contact_force = 500.0
+    cfg.rewards.only_positive_rewards = True
+    # stage 0 runs the penalties at 25% until the mean episode reward crosses
+    # the threshold, then the reference scales apply
+    cfg.rewards.multi_stage_rewards = True
+    cfg.rewards.reward_max_stage = 1
+    cfg.rewards.reward_stage_threshold = 3.0
+    s = cfg.rewards.scales
+    s.lin_vel_z = [-0.5, -2.0]
+    s.ang_vel_xy = [-0.0125, -0.05]
+    s.torques = [-2.5e-6, -1.0e-5]
+    s.dof_acc = [-6.25e-8, -2.5e-7]
+    s.action_rate = [-0.0025, -0.01]
+    s.collision = [-0.25, -1.0]
+    return cfg
+
+
+def anymal_c_rough_ppo_cfg(experiment: str = "rough_anymal_c") -> LeggedRobotCfgPPO:
+    """Rough-terrain policy settings: the reference-size [512, 256, 128] actor
+    and critic."""
+    train = LeggedRobotCfgPPO()
+    train.runner.experiment_name = experiment
+    train.runner.max_iterations = 1500
+    return train

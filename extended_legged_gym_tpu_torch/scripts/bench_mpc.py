@@ -71,12 +71,31 @@ def solve_latency(device="cuda", n_solves=15, warmup=3, seed=0):
     return sorted(times), env.cfg.trajectory_opt
 
 
+def device_split(prof, reps):
+    """Per-rep device-busy ms (sum of kernel times on the one stream), the
+    fused physics kernels' ms and their launch count, from a torch.profiler
+    trace of ``reps`` repetitions."""
+    from torch.autograd import DeviceType
+
+    busy_us = kernel_us = launches = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:          # count device kernels only
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        busy_us += us
+        if "decimated_step_kernel" in ev.key:
+            kernel_us += us
+            launches += ev.count
+    return dict(device_busy_ms=busy_us / 1e3 / reps, physics_kernel_ms=kernel_us / 1e3 / reps,
+                physics_launches=launches / reps)
+
+
 def solve_profile(device="cuda", reps=3, seed=0):
     """Where one solve's time goes, from a torch.profiler trace of ``reps``
-    solves at E=1: wall ms per solve (profiler on), device-busy ms (sum of
-    kernel times on the one stream), the fused physics kernel's ms and its
-    launch count."""
-    from torch.autograd import DeviceType
+    solves at E=1: wall ms per solve (profiler on), device-busy ms, the fused
+    physics kernel's ms and its launch count (:func:`device_split`)."""
     from torch.profiler import ProfilerActivity, profile
 
     env = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1), device=device)
@@ -89,19 +108,7 @@ def solve_profile(device="cuda", reps=3, seed=0):
             nodes, _ = env.optimize_all_trajectories(state, nodes)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    busy_us = kernel_us = launches = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:          # count device kernels only
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        busy_us += us
-        if "decimated_step_kernel" in ev.key:
-            kernel_us += us
-            launches += ev.count
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3 / reps,
-                physics_kernel_ms=kernel_us / 1e3 / reps, physics_launches=launches / reps)
+    return dict(wall_ms=wall_ms, **device_split(prof, reps))
 
 
 def percentile(sorted_ms, q):

@@ -1,1 +1,3 @@
-from .heightfield import TerrainData, flat_terrain, sample_height
+from .generator import SubTerrain, Terrain
+from .heightfield import (TerrainData, flat_terrain, from_numpy, sample_height,
+                          sample_height_and_normal)

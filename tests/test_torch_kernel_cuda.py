@@ -1,4 +1,5 @@
-"""The fused CUDA physics kernel against its plain version, on the card.
+"""The fused CUDA physics kernels (B1 flat, B2 heightfield) against their
+plain version, on the card.
 
 Needs a CUDA card and nvcc; skips without a card.  Imports no JAX, so it runs
 on a machine without it:
@@ -61,3 +62,31 @@ def test_kernel_rejects_mixed_devices(setup):
     step, st, ep, act = setup
     with pytest.raises(ValueError, match="actions"):
         step(st, act.cpu(), ep)
+
+
+@pytest.fixture(scope="module")
+def rough_setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
+
+    env = rough_env(300, torch.device("cuda"))                   # not a multiple of the block
+    states = near_standing(env.model, 300, 0, env.device, env.reset_all(seed=0).env_origins)
+    return env.decimated_step, states
+
+
+def test_rough_kernel_matches_plain_on_card(rough_setup):
+    step, (st, ep, act) = rough_setup
+    assert step.rough
+    before = pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches
+    sk, tk, rk = step(st, act, ep)
+    assert (pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches) == (
+        before[0], before[1] + 1)
+    sp, tp, rp = step.plain(st, act, ep)
+    torch.cuda.synchronize()
+    for name, atol in TOLS.items():
+        torch.testing.assert_close(getattr(sk, name), getattr(sp, name), atol=atol, rtol=0)
+    torch.testing.assert_close(rk.foot_pos, rp.foot_pos, atol=1e-4, rtol=0)
+    torch.testing.assert_close(tk, tp, atol=1e-2, rtol=0)
+    fz_k, fz_p = rk.geom_forces[..., 2].sum(1), rp.geom_forces[..., 2].sum(1)
+    assert ((fz_k - fz_p).abs() <= 30.0 + 0.2 * fz_p.abs()).all()

@@ -1,6 +1,7 @@
-"""The CUDA kernel's per-env arithmetic (csrc/physics_step.cu,
-``env_control_step``) compiled for the host with a C++ compiler and held to
-the plain version (physics/aba.py via DecimatedEnvStep.plain).
+"""The CUDA kernels' per-env arithmetic (csrc/physics_step.cu,
+``env_control_step``, B1 flat and B2 on a heightfield) compiled for the host
+with a C++ compiler and held to the plain version (physics/aba.py via
+DecimatedEnvStep.plain).
 
 The kernel itself runs only on a card (tests/test_torch_physics.py and
 chip_smoke.py cover that); this test keeps the arithmetic of the exact kernel
@@ -18,14 +19,17 @@ import torch
 from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
 from extended_legged_gym_tpu_torch.physics import EnvPhysParams, initial_state, load_model
 from extended_legged_gym_tpu_torch.physics.engine import default_sim_params
-from extended_legged_gym_tpu_torch.terrain import flat_terrain
+from extended_legged_gym_tpu_torch.envs.legged_robot_config import TerrainCfg
+from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
+from extended_legged_gym_tpu_torch.terrain import Terrain, flat_terrain, from_numpy, sample_height
 
 MODEL = "extended_legged_gym_tpu/robots/data/anymal_c.json"
 HARNESS = r"""
 #include "%s"
-extern "C" int host_step(const float* state_in, const float* act, const float* fric,
-                         const float* delta, const float* tf, const int* ti, float* state_out,
-                         float* tau_out, float* gf_out, float* fpos_out, float* fvel_out, int B) {
+template <bool ROUGH>
+int host_loop(const float* state_in, const float* act, const float* fric, const float* delta,
+              const float* tf, const int* ti, const float* tex, float* state_out, float* tau_out,
+              float* gf_out, float* fpos_out, float* fvel_out, int B) {
   const int nj = ti[TI_NJ], ng = ti[TI_NG], nf = ti[TI_NF];
   const int NS = 13 + 2 * nj + 2 * ng;
   for (int e = 0; e < B; ++e) {
@@ -33,13 +37,23 @@ extern "C" int host_step(const float* state_in, const float* act, const float* f
     float gf[3 * MAX_NG], fp[3 * MAX_NF], fv[3 * MAX_NF];
     for (int r = 0; r < NS; ++r) s[r] = state_in[r * B + e];
     for (int j = 0; j < nj; ++j) a[j] = act[j * B + e] * tf[TF_ASCALE];
-    env_control_step(tf, ti, s, a, fric[e], delta[e], tau, gf, fp, fv);
+    env_control_step<ROUGH>(tf, ti, reinterpret_cast<const float4*>(tex), s, a, fric[e],
+                            delta[e], tau, gf, fp, fv);
     for (int r = 0; r < NS; ++r) state_out[r * B + e] = s[r];
     for (int j = 0; j < nj; ++j) tau_out[j * B + e] = tau[j];
     for (int r = 0; r < 3 * ng; ++r) gf_out[r * B + e] = gf[r];
     for (int r = 0; r < 3 * nf; ++r) { fpos_out[r * B + e] = fp[r]; fvel_out[r * B + e] = fv[r]; }
   }
   return 0;
+}
+extern "C" int host_step(const float* state_in, const float* act, const float* fric,
+                         const float* delta, const float* tf, const int* ti, const float* tex,
+                         float* state_out, float* tau_out, float* gf_out, float* fpos_out,
+                         float* fvel_out, int B, int rough) {
+  return rough ? host_loop<true>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
+                                 gf_out, fpos_out, fvel_out, B)
+               : host_loop<false>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
+                                  gf_out, fpos_out, fvel_out, B);
 }
 """
 TOLS = dict(base_pos=1e-4, base_quat=1e-4, joint_pos=5e-4, base_lin_vel=2e-2,
@@ -58,7 +72,7 @@ def host_lib(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(lib), str(src)],
                    check=True, capture_output=True, timeout=300)
     h = ctypes.CDLL(str(lib))
-    h.host_step.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int]
+    h.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int]
     h.host_step.restype = ctypes.c_int
     return h
 
@@ -72,9 +86,11 @@ def _run_host(h, step, st, act, ep):
     out, tau = torch.empty_like(state), torch.empty(nj, B)
     gf, fp, fv = torch.empty(3 * ng, B), torch.empty(3 * nf, B), torch.empty(3 * nf, B)
     tf, ti = torch.as_tensor(step.tf_host), torch.as_tensor(step.ti_host)
+    tex = (torch.as_tensor(step.terrain.corner_tex) if step.rough else torch.zeros(4))
     h.host_step(state.data_ptr(), a.data_ptr(), ep.friction_scale.data_ptr(),
-                ep.base_mass_delta.data_ptr(), tf.data_ptr(), ti.data_ptr(), out.data_ptr(),
-                tau.data_ptr(), gf.data_ptr(), fp.data_ptr(), fv.data_ptr(), B)
+                ep.base_mass_delta.data_ptr(), tf.data_ptr(), ti.data_ptr(), tex.data_ptr(),
+                out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fp.data_ptr(), fv.data_ptr(), B,
+                int(step.rough))
     o = out.T
     new = st.replace(base_pos=o[:, :3], base_quat=o[:, 3:7], joint_pos=o[:, 7:19],
                      base_lin_vel=o[:, 19:22], base_ang_vel=o[:, 22:25], joint_vel=o[:, 25:37],
@@ -101,6 +117,58 @@ def test_kernel_body_matches_plain(host_lib, control_type):
     act = t(rng.standard_normal((B, 12)) * (1.0 if control_type == "P" else 10.0))
     new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
     ref, tau_r, rep = step.plain(st, act, ep)
+    for name, atol in TOLS.items():
+        np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
+                                   atol=atol, err_msg=name)
+    np.testing.assert_allclose(tau.numpy(), tau_r.numpy(), atol=1e-2)
+    np.testing.assert_allclose(fp.numpy(), rep.foot_pos.numpy(), atol=1e-4)
+    np.testing.assert_allclose(fv.numpy(), rep.foot_vel.numpy(), atol=1e-2)
+    np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
+
+
+def _slope():
+    """Planar slope h = 0.15 x - 0.08 y (tests/test_physics_kernel.py:150-158)."""
+    xs = np.arange(48) * 0.25 - 6.0
+    return from_numpy((0.15 * xs[:, None] - 0.08 * xs[None, :]).astype(np.float32), 0.25,
+                      origin=(-6.0, -6.0))
+
+
+def _grid():
+    """A generated 2 x 3 grid: slopes, rough slope, stairs, discrete."""
+    c = TerrainCfg()
+    c.num_rows, c.num_cols, c.terrain_length, c.terrain_width, c.border_size = 2, 3, 4.0, 4.0, 1.0
+    return Terrain(c, 4, seed=1).to_device()
+
+
+def _over(terrain, B, seed):
+    """Spawn points [B, 3] over the terrain interior, at its height."""
+    lo = np.array(terrain.origin) + 1.0
+    hi = np.array(terrain.origin) + np.array(terrain.shape) * terrain.hscale - 1.0
+    xy = torch.as_tensor(np.random.default_rng(seed).uniform(lo, hi, (B, 2)).astype(np.float32))
+    return torch.cat([xy, sample_height(terrain, xy)[:, None]], dim=-1)
+
+
+@pytest.mark.parametrize("terrain", ["slope", "grid", "rough_cfg_spawn"])
+def test_rough_kernel_body_matches_plain(host_lib, terrain):
+    """B2's per-env body against the plain version on a slope, on a
+    generated grid and on the rough config's 900 x 900 grid at its spawn
+    origins, near-standing states with random actions."""
+    model = load_model(MODEL)
+    B = 64
+    if terrain == "rough_cfg_spawn":
+        env = rough_env(B, "cpu")
+        step, origins = env.decimated_step, env.reset_all(seed=0).env_origins
+    else:
+        td = _slope() if terrain == "slope" else _grid()
+        step = pk.make_decimated_env_step(model, default_sim_params(), td, 4,
+                                          np.full(12, 80.0, np.float32),
+                                          np.full(12, 2.0, np.float32), model.default_dof_pos, 0.5)
+        origins = _over(td, B, seed=1)
+    assert step.rough
+    st, ep, act = near_standing(model, B, 0, "cpu", origins)
+    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
+    ref, tau_r, rep = step.plain(st, act, ep)
+    assert float(rep.geom_forces[..., 2].sum()) > 100.0 * B      # the robots stand on the terrain
     for name, atol in TOLS.items():
         np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
                                    atol=atol, err_msg=name)

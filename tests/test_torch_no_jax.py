@@ -1,7 +1,9 @@
 """The port must run where JAX is not installed: every module of
-extended_legged_gym_tpu_torch, and chip_smoke.py, import with jax, jaxlib,
-flax, optax and the JAX package blocked, and the committed warm-start
-checkpoint (whose optimizer state pickles optax objects) loads."""
+extended_legged_gym_tpu_torch (the rough-terrain modules and
+scripts/eval_rough.py among them), and chip_smoke.py, import with jax,
+jaxlib, flax, optax and the JAX package blocked, and the committed warm-start
+and rough-terrain checkpoints (whose optimizer states pickle optax objects)
+load."""
 import os
 import subprocess
 import sys
@@ -12,6 +14,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
+ROUGH_CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
 
 SCRIPT = textwrap.dedent(f"""
     import importlib, importlib.abc, pkgutil, sys
@@ -34,9 +37,14 @@ SCRIPT = textwrap.dedent(f"""
     sd = load_jax_checkpoint({CKPT!r})
     net = ActorCritic(48, 12, (128, 64, 32), (128, 64, 32))
     net.load_state_dict(sd)
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import load_policy
+    for m in ("terrain.generator", "robots.anymal_c", "scripts.eval_rough"):
+        assert pkg.__name__ + "." + m in names, m
+    rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
-    print("imported", len(names), "modules; actor", tuple(sd["actor.0.weight"].shape))
+    print("imported", len(names), "modules; actor", tuple(sd["actor.0.weight"].shape),
+          "rough actor", tuple(rough.actor[0].weight.shape))
 """)
 
 
@@ -44,7 +52,7 @@ def test_port_imports_and_loads_checkpoint_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "actor (128, 48)" in proc.stdout
+    assert "actor (128, 48)" in proc.stdout and "rough actor (512, 235)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
     assert n >= 20
 
