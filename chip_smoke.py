@@ -8,16 +8,19 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each prints its seconds; the run fails rather than overrun):
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile both fused physics kernels (csrc/physics_step.cu: B1 flat,
-   B2 heightfield) with one nvcc call and print ptxas's report of each;
-3. B1 against its plain version (physics/aba.py) on the card: one control
-   step from seeded near-standing states with random actions at every batch
-   the MPC path launches it with (8 x 128, 8 x 97, 8 x 3 and 8 envs) and at
-   2048, then 25 control steps of drift at 8 x 97;
+   B2 heightfield; one warp per env, working set in shared memory) with one
+   nvcc call and print ptxas's report of each (registers, stack, spills);
+3. B1 against its plain version (physics/aba.py) on the card, a block's
+   shared memory printed: one control step from seeded near-standing states
+   with random actions at every batch the MPC path launches it with (8 x 128,
+   8 x 97, 8 x 3 and 8 envs) and at 2048, then 25 control steps of drift at
+   8 x 97, and two launches on the same inputs at 1024, which must agree bit
+   for bit;
 4. B2 against its plain version on the anymal_c_rough curriculum grid
    (900 x 900 heightfield): near-standing states on the spawn origins, one
    control step at 32 envs (the rough evaluation) and 4096 (the rough
-   config's fleet), 25 control steps of drift at 32; B2 and plain timed at
-   both batches;
+   config's fleet), 25 control steps of drift at 32, two launches bit for
+   bit at 4096; B2 and plain timed at both batches;
 5. MPC path: ANYmal-C flat sampling MPC (RobotTrajGradSampling.mpc_step at
    the committed config, 8 envs, 0.7 m/s command, warm-started from the
    committed checkpoint); B1's launch count is read from this run;
@@ -26,9 +29,15 @@ Phases (each prints its seconds; the run fails rather than overrun):
    from this run and must be 20; then control steps per second, policy
    included, and a short rough evaluation (scripts/eval_rough.run_eval, 32
    envs, 50 + 100 steps, levels <= 2);
-7. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+7. V-control routes (make_env_step, make_env_step_rough: one substep per
+   launch, torques passed in): one substep against plain at 1024 envs on
+   flat ground and 4096 on the rough grid, then the V-control envs (the
+   flat MPC task's env, the rough evaluation env) stepped V_STEPS control
+   steps each; each route's launches are read from its run and must be
+   V_STEPS x decimation;
+8. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-8. the kernel line (JSON) and the result line.
+9. the kernel line (JSON) and the result line.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -42,8 +51,6 @@ import time
 
 T_START = time.perf_counter()
 TIME_LIMIT_S = 280.0            # the whole run, build included
-PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
-PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl")
 ROUGH_CKPT = os.path.join(ROOT, "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl")
@@ -65,6 +72,8 @@ ROUGH_STEPS = 20
 # the divergence of the same code compiled for the host
 DRIFT_ATOL = dict(base_pos=2e-2, base_quat=3e-2, joint_pos=0.1, base_lin_vel=0.1,
                   base_ang_vel=0.5, joint_vel=2.0)
+# V-control routes: flat at the MPC path's batch, rough at the fleet's
+V_FLAT_B, V_ROUGH_B, V_STEPS = 1024, 4096, 10
 
 
 def log(msg):
@@ -89,11 +98,10 @@ def compare_one_step(name, step, B, states, kernel_stats):
     Returns the largest difference over the checked fields."""
     import torch
 
-    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import launch_bound
 
     st, ep, act = states
-    model = step.model
     sk, tk, rk = step.launch(st, act, ep)
     sp_, tp, rp = step.plain(st, act, ep)
     torch.cuda.synchronize()
@@ -113,18 +121,42 @@ def compare_one_step(name, step, B, states, kernel_stats):
     for out in (sk, sp_):
         if not all(torch.isfinite(getattr(out, k)).all() for k in ONE_STEP_ATOL if k != "foot_pos"):
             fail(f"non-finite state after one {name} step at B={B}")
-    kms = bench_mpc.cuda_ms(lambda: step.launch(st, act, ep), reps=20, warmup=3)
+    bufs = step.pack(st, act, ep)
+    kms = bench_mpc.cuda_ms(lambda: step.run(bufs), reps=20, warmup=3)
+    wms = bench_mpc.cuda_ms(lambda: step.launch(st, act, ep), reps=20, warmup=3)
     pms = bench_mpc.cuda_ms(lambda: step.plain(st, act, ep), reps=3, warmup=1)
-    nbytes = (B * pk.control_step_bytes(model.nj, model.ng, step.nf, step.decimation, step.rough)
-              + 4 * (pk.TF_SIZE + pk.TI_SIZE))
-    flops = B * pk.control_step_flops(model.nb, model.nj, model.ng, step.nf, step.decimation,
-                                      step.rough)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    kernel_stats[B] = dict(ms=kms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops else "operations")
-    log(f"{name} at B={B}: kernel {kms:.4f} ms/launch, plain {pms:.3f} ms, bound "
-        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({flops:.3g} flop, {nbytes:.3g} bytes)")
+    bound_ms, bound_by, flops, nbytes = launch_bound(step, B)
+    kernel_stats[B] = dict(ms=kms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"{name} at B={B}: kernel {kms:.4f} ms/launch ({wms:.4f} ms with the wrapper's "
+        f"packing), plain {pms:.3f} ms, bound {bound_ms * 1e3:.3f} us ({flops:.3g} flop, "
+        f"{nbytes:.3g} bytes)")
     return max(errs[k] for k in ONE_STEP_ATOL)
+
+
+def bit_identical(name, step, B, states):
+    """Two launches on the same inputs must give the same bits (every sum in
+    the kernel has a fixed order)."""
+    import torch
+
+    st, ep, act = states
+    a, b = step.launch(st, act, ep), step.launch(st, act, ep)
+    torch.cuda.synchronize()
+    fields = [(k, getattr(a[0], k), getattr(b[0], k)) for k in ONE_STEP_ATOL if k != "foot_pos"]
+    fields += [("tau", a[1], b[1])] + [(k, getattr(a[2], k), getattr(b[2], k))
+                                       for k in ("geom_forces", "foot_pos", "foot_vel")]
+    bad = [k for k, x, y in fields if not torch.equal(x, y)]
+    log(f"{name} two launches at B={B}: " + ("bit-identical" if not bad else f"differ in {bad}"))
+    if bad:
+        fail(f"{name}: two launches on the same inputs differ in {bad}")
+
+
+def v_control(cfg):
+    """V control with gains the explicit substep keeps stable (as in
+    tests/test_torch_env.py)."""
+    cfg.control.control_type = "V"
+    cfg.control.stiffness = {"HAA": 10.0, "HFE": 10.0, "KFE": 10.0}
+    cfg.control.damping = {"HAA": 0.01, "HFE": 0.01, "KFE": 0.01}
+    return cfg
 
 
 def drift_check(name, step, B, states):
@@ -164,7 +196,8 @@ def main():
         AnymalCTrajGradSampling, anymal_c_traj_sampling_cfg)
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
     from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
-    from extended_legged_gym_tpu_torch.scripts.eval_rough import run_eval
+    from extended_legged_gym_tpu_torch.envs.legged_robot import LeggedRobot
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg, run_eval
     from extended_legged_gym_tpu_torch.utils.device import resolve_device
 
     # ---------------- 1. device ----------------
@@ -189,11 +222,14 @@ def main():
     cfg = anymal_c_traj_sampling_cfg(1)
     model = load_model(cfg.asset.file)
     step = AnymalCTrajGradSampling(cfg, device=dev).decimated_step
+    log(f"B1 block of {pk.ENVS_PER_BLOCK} envs: "
+        f"{pk.block_shared_bytes(model.nb, model.nj, model.ng, step.nf)} bytes of shared memory")
     flat_stats, flat_err = {}, 0.0
     for B in CHECK_B:
         flat_err = max(flat_err, compare_one_step("B1", step, B, near_standing(model, B, B, dev),
                                                   flat_stats))
     drift_check("B1", step, 776, near_standing(model, 776, 7, dev))
+    bit_identical("B1", step, 1024, near_standing(model, 1024, 1, dev))
     log("no single PyTorch call computes this step; library_ms is null")
     phase_done("B1 vs plain", t0)
 
@@ -203,6 +239,8 @@ def main():
     rstep = renv.decimated_step
     if not rstep.rough:
         fail("the rough env's physics step is not B2")
+    log(f"B2 block of {pk.ENVS_PER_BLOCK} envs: "
+        f"{pk.block_shared_bytes(model.nb, model.nj, model.ng, rstep.nf, True)} bytes of shared memory")
     origins = renv.reset_all(seed=0).env_origins
     log(f"rough terrain {renv.terrain.shape[0]} x {renv.terrain.shape[1]} at "
         f"{renv.terrain.hscale:.3g} m; spawn levels 0..{int(renv.init_terrain_levels.max())}")
@@ -211,6 +249,7 @@ def main():
         rough_err = max(rough_err, compare_one_step(
             "B2", rstep, B, near_standing(model, B, B, dev, origins), rough_stats))
     drift_check("B2", rstep, 32, near_standing(model, 32, 11, dev, origins))
+    bit_identical("B2", rstep, 4096, near_standing(model, 4096, 2, dev, origins))
     log("no single PyTorch call computes this step; library_ms is null")
     phase_done("B2 vs plain", t0)
 
@@ -298,7 +337,46 @@ def main():
         fail("non-finite values in the short rough eval")
     phase_done("rough path", t0)
 
-    # ---------------- 7. timing ----------------
+    # ---------------- 7. V-control routes ----------------
+    t0 = time.perf_counter()
+    venvs = (("flat_v", AnymalCTrajGradSampling(v_control(anymal_c_traj_sampling_cfg(V_FLAT_B)),
+                                                device=dev), V_FLAT_B, None),
+             ("rough_v", LeggedRobot(v_control(eval_cfg(V_ROUGH_B)), device=dev), V_ROUGH_B,
+              origins))
+    v_stats, v_err, v_launches = {}, {}, {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, venv, B, org in venvs:
+        vstep = venv.substep
+        if venv.decimated_step is not None or vstep.rough != (org is not None):
+            fail(f"{name}: the V-control env does not run the per-substep route")
+        st, ep, act = near_standing(model, B, 5, dev, org)
+        v_stats[name] = {}
+        v_err[name] = compare_one_step(name, vstep, B, (st, ep, 20.0 * act), v_stats[name])
+        with torch.no_grad():
+            state = venv.reset_all(seed=0)
+            pk.EnvStep.launches = pk.EnvStep.rough_launches = 0
+            pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+            finite = True
+            for _ in range(V_STEPS):
+                a = torch.randn(B, venv.num_actions, device=dev, generator=gen)
+                state = venv.step(state, a)
+                finite = finite and bool(torch.isfinite(state.obs).all())
+            torch.cuda.synchronize()
+        v_launches[name] = pk.EnvStep.rough_launches if vstep.rough else pk.EnvStep.launches
+        want = V_STEPS * venv.cfg.control.decimation
+        log(f"{name} env: {V_STEPS} control steps, {B} envs: route launches={v_launches[name]} "
+            f"(want {want}), fused launches B1={pk.DecimatedEnvStep.launches} "
+            f"B2={pk.DecimatedEnvStep.rough_launches}, torques |max|="
+            f"{state.torques.abs().max().item():.3g}, obs finite={finite}")
+        if v_launches[name] != want:
+            fail(f"{name}: the V route launched {v_launches[name]} times, not {want}")
+        if pk.DecimatedEnvStep.launches or pk.DecimatedEnvStep.rough_launches:
+            fail(f"{name}: the V-control env launched the fused control step")
+        if not finite:
+            fail(f"{name}: non-finite observations under V control")
+    phase_done("V routes", t0)
+
+    # ---------------- 8. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -308,14 +386,17 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 8. result ----------------
+    # ---------------- 9. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
-    for name, launches, err, ks, replaces in (
-            ("flat_decimated_physics_step", flat_launches, flat_err, flat_stats[1024],
-             "extended_legged_gym_tpu/ops/physics_kernel.py:447"),
-            ("rough_decimated_physics_step", rough_launches, rough_err, rough_stats[4096],
-             "extended_legged_gym_tpu/ops/physics_kernel.py:447")):
+    replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
+    for name, launches, err, ks in (
+            ("flat_decimated_physics_step", flat_launches, flat_err, flat_stats[1024]),
+            ("rough_decimated_physics_step", rough_launches, rough_err, rough_stats[4096]),
+            ("flat_physics_substep_v_route", v_launches["flat_v"], v_err["flat_v"],
+             v_stats["flat_v"][V_FLAT_B]),
+            ("rough_physics_substep_v_route", v_launches["rough_v"], v_err["rough_v"],
+             v_stats["rough_v"][V_ROUGH_B])):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": ks["ms"],
                         "plain_ms": ks["plain_ms"], "bound_ms": ks["bound_ms"],

@@ -6,7 +6,10 @@ reward table) and the env's random generator; ``reset_all`` and ``step`` map
 an :class:`EnvState` of ``[B, ...]`` tensors to a new one, as the JAX env's
 pure functions do.  Physics runs through the fused decimated step
 (``ops/physics_kernel.py``): the CUDA kernel on the card (B1 on flat ground,
-B2 on a heightfield), its plain version on the CPU.
+B2 on a heightfield), its plain version on the CPU.  Under V control the
+torques depend on the control step's ``last_dof_vel`` and are computed here
+once per substep, each substep one launch of the same kernel
+(``make_env_step`` / ``make_env_step_rough``).
 
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
@@ -30,7 +33,7 @@ Semantics kept from the JAX env, reference quirks included:
 Not ported yet (the constructor raises): terrain-curriculum promotion
 (``curriculum`` without ``freeze_terrain_levels``), triangle-mesh contacts,
 heading commands, command curriculum, domain randomization, pushes,
-observation noise, privileged observations, a termination reward, V control.
+observation noise, privileged observations, a termination reward.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.physics_kernel import make_decimated_env_step
+from ..ops.physics_kernel import make_decimated_env_step, make_env_step, make_env_step_rough
 from ..physics.contact import default_contact_params
 from ..physics.engine import EnvPhysParams, PhysState, StepReport, default_sim_params
 from ..physics.model import geom_indices_matching
@@ -170,13 +173,25 @@ class LeggedRobot:
                                                np.iinfo(np.int32).max))
         self._prepare_reward_functions()
 
-        self.decimated_step = make_decimated_env_step(
-            model, self.sim_params, self.terrain, cfg.control.decimation, p_gains, d_gains,
-            model.default_dof_pos, cfg.control.action_scale, control_type=cfg.control.control_type)
+        # P and T control: torques and substeps fused in one launch per control
+        # step; V control: one launch per substep with the torques passed in
+        self.decimated_step = self.substep = None
+        if cfg.control.control_type == "V":
+            self.substep = (make_env_step(model, self.sim_params, self.terrain.height00,
+                                          self.terrain.friction)
+                            if self.terrain.is_flat
+                            else make_env_step_rough(model, self.sim_params, self.terrain))
+        else:
+            self.decimated_step = make_decimated_env_step(
+                model, self.sim_params, self.terrain, cfg.control.decimation, p_gains, d_gains,
+                model.default_dof_pos, cfg.control.action_scale,
+                control_type=cfg.control.control_type)
 
         T = model.torch(self.device)
         self.default_dof_pos = T["default_dof_pos"]
         self.torque_limits = T["torque_limits"]
+        self.p_gains_t = torch.as_tensor(p_gains, device=self.device)
+        self.d_gains_t = torch.as_tensor(d_gains, device=self.device)
         self.base_init_state = torch.tensor(
             list(cfg.init_state.pos) + list(cfg.init_state.rot)
             + list(cfg.init_state.lin_vel) + list(cfg.init_state.ang_vel),
@@ -194,7 +209,6 @@ class LeggedRobot:
             "terrain-curriculum promotion (terrain.curriculum without "
             "terrain.freeze_terrain_levels)": rough and tc.curriculum and not tc.freeze_terrain_levels,
             "triangle-mesh contacts (terrain.trimesh_contacts)": tc.trimesh_contacts,
-            "control.control_type V": cfg.control.control_type == "V",
             "commands.heading_command": cfg.commands.heading_command,
             "commands.curriculum": cfg.commands.curriculum,
             "domain_rand.randomize_friction": cfg.domain_rand.randomize_friction,
@@ -331,16 +345,34 @@ class LeggedRobot:
         terminations, resets, observations)."""
         clip_a = self.cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
-        phys, torques, report = self._physics_substeps(state.phys, actions, state.env_params)
+        phys, torques, report = self._physics_substeps(state.phys, actions, state.env_params,
+                                                       state.last_dof_vel)
         state = state.replace(phys=phys, actions=actions, torques=torques)
         state = self._refresh_derived(state, report)
         return self._post_physics_step(state)
 
     def _physics_substeps(self, phys: PhysState, actions: torch.Tensor,
-                          env_params: EnvPhysParams):
-        """Decimation loop (torques recomputed every substep), fused into one
-        kernel launch on the card: ``(phys, tau_last, report)``."""
-        return self.decimated_step(phys, actions, env_params)
+                          env_params: EnvPhysParams, last_dof_vel: torch.Tensor):
+        """Decimation loop (torques recomputed every substep):
+        ``(phys, tau_last, report)``.  P and T control run it fused in one
+        kernel launch on the card; V control launches one substep at a time."""
+        if self.substep is None:
+            return self.decimated_step(phys, actions, env_params)
+        for _ in range(self.cfg.control.decimation):
+            tau = self._compute_torques(actions, phys, last_dof_vel)
+            phys, report = self.substep(phys, tau, env_params)
+        return phys, tau, report
+
+    def _compute_torques(self, actions: torch.Tensor, phys: PhysState,
+                         last_dof_vel: torch.Tensor) -> torch.Tensor:
+        """V-control torques, clamped to the limits: a P term on the velocity
+        error and a D term on the joint acceleration since the control step
+        began (``last_dof_vel``).  P and T torques are computed inside the
+        fused step."""
+        scaled = actions * self.cfg.control.action_scale
+        tau = (self.p_gains_t * (scaled - phys.joint_vel)
+               - self.d_gains_t * (phys.joint_vel - last_dof_vel) / self.cfg.sim.dt)
+        return torch.maximum(torch.minimum(tau, self.torque_limits), -self.torque_limits)
 
     def _refresh_derived(self, state: EnvState, report: Optional[StepReport] = None) -> EnvState:
         """Base-frame velocities, gravity projection and foot/contact states."""

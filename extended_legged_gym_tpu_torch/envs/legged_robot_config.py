@@ -80,7 +80,7 @@ class InitStateCfg:
 
 @configclass
 class ControlCfg:
-    control_type: str = "P"  # P / T
+    control_type: str = "P"  # P / V / T
     stiffness: Dict[str, float] = {}
     damping: Dict[str, float] = {}
     action_scale: float = 0.5

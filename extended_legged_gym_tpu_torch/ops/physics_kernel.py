@@ -12,6 +12,11 @@ returns ``(new_phys, tau_last, report)``:
 * on CPU tensors it runs the plain version, ``physics/aba.py`` once per
   substep.
 
+:func:`make_env_step` and :func:`make_env_step_rough` are the V-control
+routes: one physics substep per call with the torques passed in, the same
+kernels launched with ``decimation = 1``, direct torques and action scale 1
+(:class:`EnvStep`, counted apart from the fused control steps).
+
 On a heightfield the JAX package's fused step carries each geom's position
 from the previous control step and samples one tangent plane there per
 control step; the port's B2, like the ABA engine, samples the heightfield at
@@ -22,6 +27,9 @@ The kernel is built with nvcc into a shared library with a plain C interface
 at first use and loaded with ctypes; the build goes into ``_build/`` beside
 this package.  The model reaches the kernel as two small device tables, one of
 floats and one of ints, whose layout mirrors the offsets in the CUDA source.
+The kernel runs one warp per env with the env's working set in shared memory;
+:func:`workspace_words` mirrors its layout, so the wrapper sizes the launch
+from the model and refuses a model whose block would not fit.
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import torch
 from ..physics.aba import aba_physics_step, foot_geoms
 from ..physics.engine import EnvPhysParams, PhysState, SimParams, StepReport
 from ..physics.model import RobotModel
-from ..terrain.heightfield import TerrainData
+from ..terrain.heightfield import TerrainData, flat_terrain
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "physics_step.cu")
@@ -54,6 +62,16 @@ TI_PARENT = 8
 TI_GBODY = TI_PARENT + MAX_NB
 TI_FGEOM = TI_GBODY + MAX_NG
 TI_SIZE = TI_FGEOM + MAX_NF
+# the schedule after TI_SIZE: depths, bodies by level, geom slots, children
+TI_DEPTH = TI_SIZE
+TI_LVL = TI_DEPTH + MAX_NB
+TI_LOFF = TI_LVL + MAX_NB
+TI_GOFF = TI_LOFF + MAX_NB + 1
+TI_GSLOT = TI_GOFF + MAX_NB + 1
+TI_COFF = TI_GSLOT + MAX_NG
+TI_CLIST = TI_COFF + MAX_NB + 1
+TI_MAXD = TI_CLIST + MAX_NB
+TI_FULL = TI_MAXD + 1
 TF_DT, TF_G, TF_KP, TF_KD, TF_KT, TF_MU, TF_KTS, TF_JDAMP, TF_H0, TF_ASCALE = (
     0, 1, 4, 5, 6, 7, 8, 9, 10, 11)
 TF_JROT = 16
@@ -78,6 +96,11 @@ TF_GMAX = TF_ORG + 2
 TF_SIZE = TF_GMAX + 2
 CONTROL_TYPES = {"P": 0, "T": 1}
 
+# launch geometry and per-env workspace, mirrored from csrc/physics_step.cu
+ENVS_PER_BLOCK = 4                      # one warp per env
+SMEM_PER_BLOCK = 232448                 # shared memory one H100 block can use (227 KB)
+BSTR, GC_STR = 92, 28                   # words per body block, per geom's terms
+
 _libs = {}
 _build_logs = {}
 
@@ -91,12 +114,13 @@ def _spatial_inertia_np(inertia, com, m):
     return np.block([[inertia + m * (cx @ cx.T), m * cx], [m * cx.T, m * np.eye(3)]])
 
 
-def build_library(source: str = SOURCE) -> str:
-    """Compile ``source`` (by default ``csrc/physics_step.cu``) with nvcc into
-    ``_build/`` unless a library of the same source and flags is there.
-    Returns its path."""
+def build_library(source: str = SOURCE, extra_flags=()) -> str:
+    """Compile ``source`` (by default ``csrc/physics_step.cu``) with nvcc and
+    ``extra_flags`` into ``_build/`` unless a library of the same source and
+    flags is there.  Returns its path."""
+    flags = NVCC_FLAGS + list(extra_flags)
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     path = os.path.join(BUILD_DIR, f"libphysics_step_{digest}.so")
     if os.path.exists(path):
         return path
@@ -107,9 +131,9 @@ def build_library(source: str = SOURCE) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
+        proc = subprocess.run([nvcc, *flags, "-o", tmp, source],
                               capture_output=True, text=True, timeout=600)
-        log = _build_logs[source] = proc.stdout + proc.stderr
+        log = _build_logs[(source, tuple(extra_flags))] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, path)
@@ -119,17 +143,18 @@ def build_library(source: str = SOURCE) -> str:
     return path
 
 
-def build_log(source: str = SOURCE) -> str:
+def build_log(source: str = SOURCE, extra_flags=()) -> str:
     """nvcc's output (with the ``-Xptxas -v`` register and spill report) from
     this process's build of ``source``; empty if its library was already built."""
-    return _build_logs.get(source, "")
+    return _build_logs.get((source, tuple(extra_flags)), "")
 
 
-def load_library(source: str = SOURCE) -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library of ``source``; check its
-    table layout."""
-    if source not in _libs:
-        lib = ctypes.CDLL(build_library(source))
+def load_library(source: str = SOURCE, extra_flags=()) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library of ``source`` (with
+    ``extra_flags``); check its table layout."""
+    key = (source, tuple(extra_flags))
+    if key not in _libs:
+        lib = ctypes.CDLL(build_library(source, extra_flags))
         lib.physics_table_layout.argtypes = [ctypes.c_void_p]
         lib.physics_table_layout.restype = ctypes.c_int
         lib.physics_decimated_step.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
@@ -137,13 +162,71 @@ def load_library(source: str = SOURCE) -> ctypes.CDLL:
         lib.physics_decimated_step_rough.argtypes = ([ctypes.c_void_p] * 12
                                                      + [ctypes.c_int, ctypes.c_void_p])
         lib.physics_decimated_step_rough.restype = ctypes.c_int
+        try:
+            lib.physics_workspace_bytes.argtypes = [ctypes.c_int] * 5
+            lib.physics_workspace_bytes.restype = ctypes.c_int
+            lib.physics_set_workspace_bytes.argtypes = [ctypes.c_int]
+            lib.physics_set_workspace_bytes.restype = ctypes.c_int
+            if lib.physics_int_table_size() != TI_FULL:
+                raise RuntimeError(f"kernel int table of {lib.physics_int_table_size()} entries "
+                                   f"!= wrapper's {TI_FULL}")
+            lib.shared_workspace = True
+        except AttributeError:          # an older source: one thread per env, no workspace
+            lib.shared_workspace = False
         layout = (ctypes.c_int * 6)()
         lib.physics_table_layout(ctypes.addressof(layout))
         want = (MAX_NB, MAX_NJ, MAX_NG, MAX_NF, TI_SIZE, TF_SIZE)
         if tuple(layout) != want:
             raise RuntimeError(f"kernel table layout {tuple(layout)} != wrapper's {want}")
-        _libs[source] = lib
-    return _libs[source]
+        _libs[key] = lib
+    return _libs[key]
+
+
+def workspace_words(nb: int, nj: int, ng: int, nf: int, rough: bool = False) -> int:
+    """4-byte words of one env's working set in the kernel's shared memory
+    (``ws_layout`` in the CUDA source): per body a block of ``BSTR`` words
+    (articulated inertia, frame, joint rotation, position, velocity, bias
+    velocity, acceleration, bias force, U, 1/D, u); the state row, actions,
+    torques, joint accelerations, friction and mass delta; the base's inertia
+    at the env's mass; per geom its damper and wrench terms (reused for each
+    body's terms for its parent in the backward sweep, then for the report)
+    and the report stash."""
+    up4 = lambda n: (n + 3) // 4 * 4          # 16-byte aligned regions
+    o = up4(BSTR * nb + (13 + 2 * nj + 2 * ng) + 3 * nj + 2) + 36
+    o = up4(o) + GC_STR * max(ng, nb) + (13 if rough else 9) * ng
+    return up4(o)
+
+
+def block_shared_bytes(nb: int, nj: int, ng: int, nf: int, rough: bool = False) -> int:
+    """Dynamic shared memory of one block: ``ENVS_PER_BLOCK`` env workspaces
+    and a copy of the model tables; raises ``ValueError`` with the model's
+    sizes if a block cannot hold it."""
+    nbytes = ENVS_PER_BLOCK * 4 * workspace_words(nb, nj, ng, nf, rough) + 4 * (TF_SIZE + TI_FULL)
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(f"model sizes nb={nb} nj={nj} ng={ng} nf={nf}: a block of "
+                         f"{ENVS_PER_BLOCK} envs needs {nbytes} bytes of shared memory, "
+                         f"more than the {SMEM_PER_BLOCK} a block can use")
+    return nbytes
+
+
+def _write_schedule(ti: np.ndarray, parent: np.ndarray, geom_body: np.ndarray):
+    """The kernel's tree schedule into the int table: each body's depth, the
+    bodies by depth (then index) with the first slot of each depth, each
+    geom's slot (geoms body by body, then by index) with each body's first
+    slot, each body's children (by index) with each body's first entry, and
+    the deepest depth."""
+    nb, ng = len(parent), len(geom_body)
+    depth = np.zeros(nb, np.int32)
+    for i in range(1, nb):
+        depth[i] = depth[parent[i]] + 1
+    ti[TI_DEPTH:TI_DEPTH + nb] = depth
+    ti[TI_LVL:TI_LVL + nb] = np.lexsort((np.arange(nb), depth))
+    ti[TI_LOFF:TI_LOFF + nb + 1] = [int((depth < d).sum()) for d in range(nb + 1)]
+    ti[TI_GOFF:TI_GOFF + nb + 1] = [int((geom_body < b).sum()) for b in range(nb + 1)]
+    ti[TI_GSLOT + np.lexsort((np.arange(ng), geom_body))] = np.arange(ng)
+    ti[TI_COFF:TI_COFF + nb + 1] = [int((parent[1:] < b).sum()) for b in range(nb + 1)]
+    ti[TI_CLIST:TI_CLIST + nb - 1] = 1 + np.lexsort((np.arange(nb - 1), parent[1:]))
+    ti[TI_MAXD] = depth.max()
 
 
 def control_step_flops(nb: int, nj: int, ng: int, nf: int, decimation: int,
@@ -190,9 +273,9 @@ def control_step_bytes(nj: int, ng: int, nf: int, decimation: int, rough: bool =
 class DecimatedEnvStep:
     """One control step of B envs: PD (or direct) torques, clamped to the
     model's torque limits, and ``decimation`` physics substeps, on flat ground
-    (kernel B1) or on a heightfield (kernel B2).  ``DecimatedEnvStep.launches``
-    counts the B1 launches of all instances, ``DecimatedEnvStep.rough_launches``
-    the B2 launches."""
+    (kernel B1) or on a heightfield (kernel B2).  ``launches`` counts the B1
+    launches of all instances of the class, ``rough_launches`` the B2
+    launches (:class:`EnvStep` keeps its own)."""
 
     launches = 0
     rough_launches = 0
@@ -210,6 +293,9 @@ class DecimatedEnvStep:
             raise ValueError(f"model sizes nb={nb} nj={nj} ng={ng} nf={nf} exceed the kernel's "
                              f"maxima {MAX_NB}/{MAX_NJ}/{MAX_NG}/{MAX_NF}")
         self.rough = not terrain.is_flat
+        block_shared_bytes(nb, nj, ng, nf, self.rough)     # raises if a block cannot hold it
+        self.ws_bytes = 4 * workspace_words(nb, nj, ng, nf, self.rough)
+        self._ws_checked = set()
         if self.rough and terrain.shape[0] * terrain.shape[1] >= 2 ** 31:
             raise ValueError(f"heightfield {terrain.shape} too large for the kernel's int index")
         self.model, self.sp, self.terrain = model, sp, terrain
@@ -222,12 +308,13 @@ class DecimatedEnvStep:
                           ddp=np.asarray(default_dof_pos, np.float32), tl=np.asarray(tl, np.float32))
         self._dev = {}
 
-        ti = np.zeros(TI_SIZE, np.int32)
+        ti = np.zeros(TI_FULL, np.int32)
         ti[[TI_NB, TI_NJ, TI_NG, TI_NF, TI_DECIM, TI_CTRL, TI_TH, TI_TW]] = (
             nb, nj, ng, nf, decimation, CONTROL_TYPES[control_type], *terrain.shape)
         ti[TI_PARENT:TI_PARENT + nb] = model.parent
         ti[TI_GBODY:TI_GBODY + ng] = model.geom_body
         ti[TI_FGEOM:TI_FGEOM + nf] = fg
+        _write_schedule(ti, np.asarray(model.parent), np.asarray(model.geom_body))
         tf = np.zeros(TF_SIZE, np.float64)
         c = sp.contact
         tf[TF_DT] = sp.dt
@@ -311,51 +398,77 @@ class DecimatedEnvStep:
             raise ValueError(f"unsupported device {phys.base_pos.device}")
         return self.launch(phys, actions, env_params)
 
-    def launch(self, phys: PhysState, actions: torch.Tensor, env_params: EnvPhysParams,
-               lib: Optional[ctypes.CDLL] = None):
-        """Run the CUDA kernel, B2 on a heightfield, else B1 (CUDA tensors
-        only); ``lib`` is a library from :func:`load_library`, by default the
-        package's own source."""
-        lib = lib or load_library()
+    def pack(self, phys: PhysState, actions: torch.Tensor, env_params: EnvPhysParams) -> dict:
+        """The kernel's SoA inputs ``[rows, B]`` for these CUDA tensors and
+        freshly allocated outputs."""
         dev = phys.base_pos.device
-        t = self._tensors(dev)
         B, nj, ng, nf = phys.base_pos.shape[0], self.model.nj, self.model.ng, self.nf
         state = torch.cat([phys.base_pos.T, phys.base_quat.T, phys.joint_pos.T,
                            phys.base_lin_vel.T, phys.base_ang_vel.T, phys.joint_vel.T,
                            phys.contact_anchor.reshape(B, 2 * ng).T]).contiguous()
-        act = actions.T.contiguous()
-        fric = env_params.friction_scale.contiguous()
-        delta = env_params.base_mass_delta.contiguous()
-        out = torch.empty(self.NS, B, device=dev)
-        tau = torch.empty(nj, B, device=dev)
-        gf = torch.empty(3 * ng, B, device=dev)
-        fpos = torch.empty(3 * nf, B, device=dev)
-        fvel = torch.empty(3 * nf, B, device=dev)
+        return dict(B=B, state=state, act=actions.T.contiguous(),
+                    fric=env_params.friction_scale.contiguous(),
+                    delta=env_params.base_mass_delta.contiguous(),
+                    out=torch.empty(self.NS, B, device=dev), tau=torch.empty(nj, B, device=dev),
+                    gf=torch.empty(3 * ng, B, device=dev), fpos=torch.empty(3 * nf, B, device=dev),
+                    fvel=torch.empty(3 * nf, B, device=dev))
+
+    def run(self, bufs: dict, lib: Optional[ctypes.CDLL] = None):
+        """One launch of the kernel, B2 on a heightfield, else B1, on buffers
+        from :meth:`pack`, on the current stream; counts it.  ``lib`` is a
+        library from :func:`load_library`, by default the package's own
+        source."""
+        lib = lib or load_library()
+        if lib.shared_workspace:
+            if id(lib) not in self._ws_checked:
+                got = lib.physics_workspace_bytes(self.model.nb, self.model.nj, self.model.ng,
+                                                  self.nf, int(self.rough))
+                if got != self.ws_bytes:
+                    raise RuntimeError(f"kernel workspace {got} bytes != wrapper's {self.ws_bytes}")
+                self._ws_checked.add(id(lib))
+            rc = lib.physics_set_workspace_bytes(self.ws_bytes)
+            if rc != 0:
+                raise RuntimeError(f"setting the kernel's shared memory failed: cudaError {rc}")
+        dev = bufs["state"].device
+        t = self._tensors(dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-        ins = (state.data_ptr(), act.data_ptr(), fric.data_ptr(), delta.data_ptr(),
-               t["tf"].data_ptr(), t["ti"].data_ptr())
-        outs = (out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fpos.data_ptr(), fvel.data_ptr())
+        ins = [bufs[k].data_ptr() for k in ("state", "act", "fric", "delta")]
+        ins += [t["tf"].data_ptr(), t["ti"].data_ptr()]
+        outs = [bufs[k].data_ptr() for k in ("out", "tau", "gf", "fpos", "fvel")]
         if self.rough:
-            rc = lib.physics_decimated_step_rough(*ins, t["tex"].data_ptr(), *outs, B, stream)
+            rc = lib.physics_decimated_step_rough(*ins, t["tex"].data_ptr(), *outs, bufs["B"], stream)
         else:
-            rc = lib.physics_decimated_step(*ins, *outs, B, stream)
+            rc = lib.physics_decimated_step(*ins, *outs, bufs["B"], stream)
         if rc != 0:
             raise RuntimeError(f"physics kernel {'B2' if self.rough else 'B1'} launch failed: "
                                f"cudaError {rc}")
         if self.rough:
-            DecimatedEnvStep.rough_launches += 1
+            type(self).rough_launches += 1
         else:
-            DecimatedEnvStep.launches += 1
-        o = out.T
+            type(self).launches += 1
+
+    def unpack(self, bufs: dict):
+        """``(new_phys, tau_last, report)`` as views of :meth:`pack`'s outputs."""
+        B, nj, ng, nf = bufs["B"], self.model.nj, self.model.ng, self.nf
+        o = bufs["out"].T
         new_phys = PhysState(
             base_pos=o[:, 0:3], base_quat=o[:, 3:7], joint_pos=o[:, 7:7 + nj],
             base_lin_vel=o[:, 7 + nj:10 + nj], base_ang_vel=o[:, 10 + nj:13 + nj],
             joint_vel=o[:, 13 + nj:13 + 2 * nj],
             contact_anchor=o[:, 13 + 2 * nj:].reshape(B, ng, 2))
-        report = StepReport(geom_forces=gf.T.reshape(B, ng, 3),
-                            foot_pos=fpos.T.reshape(B, nf, 3), foot_vel=fvel.T.reshape(B, nf, 3))
-        return new_phys, tau.T, report
+        report = StepReport(geom_forces=bufs["gf"].T.reshape(B, ng, 3),
+                            foot_pos=bufs["fpos"].T.reshape(B, nf, 3),
+                            foot_vel=bufs["fvel"].T.reshape(B, nf, 3))
+        return new_phys, bufs["tau"].T, report
+
+    def launch(self, phys: PhysState, actions: torch.Tensor, env_params: EnvPhysParams,
+               lib: Optional[ctypes.CDLL] = None):
+        """Run the CUDA kernel, B2 on a heightfield, else B1 (CUDA tensors
+        only): pack, one launch, unpack."""
+        bufs = self.pack(phys, actions, env_params)
+        self.run(bufs, lib)
+        return self.unpack(bufs)
 
 
 def make_decimated_env_step(model: RobotModel, sp: SimParams, terrain: TerrainData,
@@ -366,3 +479,42 @@ def make_decimated_env_step(model: RobotModel, sp: SimParams, terrain: TerrainDa
     heightfield."""
     return DecimatedEnvStep(model, sp, terrain, decimation, p_gains, d_gains,
                             default_dof_pos, action_scale, control_type)
+
+
+class EnvStep(DecimatedEnvStep):
+    """One physics substep of B envs with the torques passed in (the V-control
+    routes): the fused kernel at ``decimation = 1``, control T, action scale
+    1; the torques are clamped to the model's limits as in the control step.
+    Called as ``(phys, tau, env_params) -> (new_phys, report)``.
+    ``EnvStep.launches`` counts its B1 launches, ``EnvStep.rough_launches``
+    its B2 launches."""
+
+    launches = 0
+    rough_launches = 0
+
+    def __init__(self, model: RobotModel, sp: SimParams, terrain: TerrainData):
+        zeros = np.zeros(model.nj, np.float32)
+        super().__init__(model, sp, terrain, 1, zeros, zeros, zeros, 1.0, control_type="T")
+
+    def __call__(self, phys: PhysState, tau: torch.Tensor, env_params: EnvPhysParams):
+        new_phys, _, report = super().__call__(phys, tau, env_params)
+        return new_phys, report
+
+
+def make_env_step(model: RobotModel, sp: SimParams, terrain_height: float = 0.0,
+                  friction: float = 1.0) -> EnvStep:
+    """One flat physics substep per call with the torques passed in (JAX
+    counterpart of the same name): B1 at ``decimation = 1`` against the plane
+    at ``terrain_height``.  Unlike the Pallas B1 it applies the terrain's
+    ``friction``, as the ABA engine does."""
+    return EnvStep(model, sp, flat_terrain(friction=friction, height=terrain_height))
+
+
+def make_env_step_rough(model: RobotModel, sp: SimParams, terrain: TerrainData) -> EnvStep:
+    """One rough physics substep per call with the torques passed in (JAX
+    counterpart of the same name, without the geom-position carry): B2 at
+    ``decimation = 1``, sampling the heightfield at the current geom
+    positions."""
+    if terrain.is_flat:
+        raise ValueError("make_env_step_rough takes a heightfield; use make_env_step on flat ground")
+    return EnvStep(model, sp, terrain)

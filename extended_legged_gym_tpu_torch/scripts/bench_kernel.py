@@ -1,15 +1,24 @@
 """Time the fused physics kernels, built from one or more CUDA sources, on one
-card: B1 (flat) at the batches the sampling-MPC path launches it with
-(8 x 128, 8 x 97, 8 x 3, 8) and at 2048, and B2 (heightfield) at the rough
-evaluation's 32 envs and the rough config's 4096, on the ``anymal_c_rough``
-curriculum grid.  Each source is timed twice, in the order a b ... b a, so a
-drift of the card's clock falls on all alike.  The ptxas register and stack
-report comes with each source this run built (null for one built before).
-Usage, from the repository root:
+card: B1 (flat) at the batches the sampling-MPC path launches it with at
+E=8 (8 x 128, 8 x 97, 8 x 3, 8) and at E=1 (128, 97, 3), and at 2048, and B2
+(heightfield) at the rough evaluation's 32 envs and the rough config's 4096,
+on the ``anymal_c_rough`` curriculum grid.  Each source is timed twice, in
+the order a b ... b a, so a drift of the card's clock falls on all alike.
+The launches run on inputs packed once, so the time is the kernel's own, not
+the wrapper's packing.  Each batch's bound (``launch_bound``) comes with it.
+The ptxas report (per entry: registers, stack frame, spill stores and loads)
+comes with each source this run built (null for one built before).  A source
+of the same table layout from before the warp-per-env design (one thread per
+env, no shared workspace) is timed through the same wrapper; a source of
+another layout fails ``load_library``'s check.  Usage, from the repository
+root, for example against an older commit's source:
 
-  python -m extended_legged_gym_tpu_torch.scripts.bench_kernel [--source FILE ...] [--reps N]
+  mkdir -p checkout && git show REV:extended_legged_gym_tpu_torch/csrc/physics_step.cu > checkout/old.cu
+  python -m extended_legged_gym_tpu_torch.scripts.bench_kernel --source checkout/old.cu \
+      --source extended_legged_gym_tpu_torch/csrc/physics_step.cu
 
-Without ``--source`` it times ``csrc/physics_step.cu``.  Prints one JSON object.
+Without ``--source`` it times ``csrc/physics_step.cu``.  Prints one JSON
+object.
 """
 import argparse
 import json
@@ -26,8 +35,24 @@ from extended_legged_gym_tpu_torch.robots.anymal_c_traj import (AnymalCTrajGradS
 from extended_legged_gym_tpu_torch.scripts.bench_mpc import cuda_ms
 from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg
 
-FLAT_BATCHES = (1024, 776, 24, 8, 2048)
+FLAT_BATCHES = (1024, 776, 24, 8, 128, 97, 3, 2048)
 ROUGH_BATCHES = (32, 4096)
+PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
+
+
+def launch_bound(step, B):
+    """The least time (ms) one launch of ``step``'s kernel at B envs could
+    take on an H100: the larger of its float operations over the card's
+    float32 peak and its bytes (inputs read once, outputs written once, the
+    model tables once) over the memory rate.  Returns (ms, "operations" or
+    "bytes", operations, bytes)."""
+    m = step.model
+    nbytes = (B * pk.control_step_bytes(m.nj, m.ng, step.nf, step.decimation, step.rough)
+              + 4 * (pk.TF_SIZE + pk.TI_FULL))
+    flops = B * pk.control_step_flops(m.nb, m.nj, m.ng, step.nf, step.decimation, step.rough)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", flops, nbytes
 
 
 def near_standing(model, B, seed, device, origins=None):
@@ -70,20 +95,25 @@ def main():
     for src in sources:
         libs[src] = pk.load_library(src)
         ptxas[src] = [ln.strip() for ln in pk.build_log(src).splitlines()
-                      if "registers" in ln or "stack frame" in ln] or None
+                      if any(w in ln for w in ("entry function", "registers", "stack frame"))] or None
     ms = {src: {"B1": {B: [] for B in FLAT_BATCHES}, "B2": {B: [] for B in ROUGH_BATCHES}}
           for src in sources}
+    bounds = {"B1": {}, "B2": {}}
     for name, step, batches, org in (("B1", flat, FLAT_BATCHES, None),
                                      ("B2", renv.decimated_step, ROUGH_BATCHES, origins)):
         for B in batches:
+            bms, by, _, _ = launch_bound(step, B)
+            bounds[name][B] = {"bound_ms": bms, "bound_by": by}
             st, ep, act = near_standing(step.model, B, B, dev, org)
+            bufs = step.pack(st, act, ep)          # the kernel alone is timed
             for src in sources + sources[::-1]:
                 ms[src][name][B].append(cuda_ms(
-                    lambda: step.launch(st, act, ep, lib=libs[src]), reps=args.reps, warmup=5))
+                    lambda: step.run(bufs, lib=libs[src]), reps=args.reps, warmup=5))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "reps": args.reps, "kernels": [
-        {"source": src, "ptxas": ptxas[src], "ms_per_launch": ms[src]} for src in sources]}))
+    print(json.dumps({"card": smi, "reps": args.reps, "bounds": bounds, "kernels": [
+        {"source": src, "ptxas": ptxas[src], "shared_workspace": libs[src].shared_workspace,
+         "ms_per_launch": ms[src]} for src in sources]}))
 
 
 if __name__ == "__main__":

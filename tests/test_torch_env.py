@@ -14,6 +14,7 @@ import torch
 from extended_legged_gym_tpu.robots.anymal_c_traj import AnymalCTrajGradSampling as JEnv
 from extended_legged_gym_tpu.robots.anymal_c_traj import anymal_c_traj_sampling_cfg as jcfg
 from extended_legged_gym_tpu_torch.envs.legged_robot import EnvState
+from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
 from extended_legged_gym_tpu_torch.physics import EnvPhysParams, PhysState
 from extended_legged_gym_tpu_torch.robots.anymal_c_traj import (AnymalCTrajGradSampling,
                                                                anymal_c_traj_sampling_cfg)
@@ -131,3 +132,43 @@ def test_dial_mpc_reward_terms_match(envs, name):
     want = np.asarray(getattr(jenv, f"_reward_{name}")(js, jctx))
     got = getattr(env, f"_reward_{name}")(s, ctx).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def v_control(cfg):
+    """V control with gains the explicit substep keeps stable: a velocity
+    P gain and a small D gain on the joint acceleration."""
+    cfg.control.control_type = "V"
+    cfg.control.stiffness = {"HAA": 10.0, "HFE": 10.0, "KFE": 10.0}
+    cfg.control.damping = {"HAA": 0.01, "HFE": 0.01, "KFE": 0.01}
+    return cfg
+
+
+def test_v_control_step_matches_jax():
+    """V control on flat ground, 4 envs, three control steps: the port env
+    (per-substep torques from the control step's ``last_dof_vel``, one
+    physics launch per substep) against the JAX env with the ABA solver."""
+    n = 4
+    c = v_control(jcfg(n))
+    c.sim.solver = "aba"
+    jenv = JEnv(c)
+    env = AnymalCTrajGradSampling(v_control(anymal_c_traj_sampling_cfg(n)), device="cpu")
+    assert env.decimated_step is None and not env.substep.rough
+    jstep = jax.jit(jenv.step)
+    js = jenv.reset_all(jax.random.PRNGKey(4))
+    s = to_torch_state(js)
+    rng = np.random.default_rng(2)
+    before = pk.EnvStep.launches, pk.DecimatedEnvStep.launches
+    for i in range(3):
+        a = rng.standard_normal((n, 12)).astype(np.float32)
+        js = jstep(js, jnp.asarray(a))
+        s = env.step(s, torch.as_tensor(a))
+        assert not bool(np.asarray(js.reset_buf).any())
+        for k in PHYS:
+            np.testing.assert_allclose(getattr(s.phys, k).numpy(), np.asarray(getattr(js.phys, k)),
+                                       atol=5e-3, err_msg=f"step {i} {k}")
+        np.testing.assert_allclose(s.torques.numpy(), np.asarray(js.torques), atol=0.5)
+        np.testing.assert_allclose(s.obs.numpy(), np.asarray(js.obs), atol=1e-2, err_msg=f"obs {i}")
+        np.testing.assert_allclose(s.rew.numpy(), np.asarray(js.rew), atol=1e-3, err_msg=f"rew {i}")
+    assert float(s.torques.abs().max()) > 1.0                       # the V torques act
+    # the CPU path runs the plain version: no kernel launch counted
+    assert (pk.EnvStep.launches, pk.DecimatedEnvStep.launches) == before

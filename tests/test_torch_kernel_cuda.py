@@ -1,5 +1,6 @@
-"""The fused CUDA physics kernels (B1 flat, B2 heightfield) against their
-plain version, on the card.
+"""The fused CUDA physics kernels (B1 flat, B2 heightfield) and their V-control
+routes (one substep, torques passed in) against their plain version, on the
+card; two launches on the same inputs agree bit for bit.
 
 Needs a CUDA card and nvcc; skips without a card.  Imports no JAX, so it runs
 on a machine without it:
@@ -90,3 +91,45 @@ def test_rough_kernel_matches_plain_on_card(rough_setup):
     torch.testing.assert_close(tk, tp, atol=1e-2, rtol=0)
     fz_k, fz_p = rk.geom_forces[..., 2].sum(1), rp.geom_forces[..., 2].sum(1)
     assert ((fz_k - fz_p).abs() <= 30.0 + 0.2 * fz_p.abs()).all()
+
+
+def _assert_close(sk, rk, sp, rp):
+    for name, atol in TOLS.items():
+        torch.testing.assert_close(getattr(sk, name), getattr(sp, name), atol=atol, rtol=0)
+    torch.testing.assert_close(rk.foot_pos, rp.foot_pos, atol=1e-4, rtol=0)
+
+
+def test_env_step_routes_match_plain_on_card(setup, rough_setup):
+    """make_env_step and make_env_step_rough: one launch per call, counted on
+    EnvStep's own counters, against one plain ABA substep."""
+    step, st, ep, act = setup
+    rstep, (rst, rep_, ract) = rough_setup
+    for vstep, (s0, e0, a0), counter in (
+            (pk.make_env_step(step.model, step.sp), (st, ep, act), "launches"),
+            (pk.make_env_step_rough(rstep.model, rstep.sp, rstep.terrain), (rst, rep_, ract),
+             "rough_launches")):
+        tau = 20.0 * a0
+        before = (pk.EnvStep.launches, pk.EnvStep.rough_launches,
+                  pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches)
+        sk, rk = vstep(s0, tau, e0)
+        after = (pk.EnvStep.launches, pk.EnvStep.rough_launches,
+                 pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches)
+        k = 0 if counter == "launches" else 1
+        assert after == tuple(b + (i == k) for i, b in enumerate(before))
+        sp, _, rp = vstep.plain(s0, tau, e0)
+        torch.cuda.synchronize()
+        _assert_close(sk, rk, sp, rp)
+
+
+def test_two_launches_are_bit_identical(setup, rough_setup):
+    """Every sum in the kernel has a fixed order (no atomics)."""
+    step, st, ep, act = setup
+    rstep, (rst, rep_, ract) = rough_setup
+    for stp, (s0, e0, a0) in ((step, (st, ep, act)), (rstep, (rst, rep_, ract))):
+        a, b = stp.launch(s0, a0, e0), stp.launch(s0, a0, e0)
+        torch.cuda.synchronize()
+        for k in TOLS:
+            assert torch.equal(getattr(a[0], k), getattr(b[0], k)), k
+        assert torch.equal(a[1], b[1])
+        for k in ("geom_forces", "foot_pos", "foot_vel"):
+            assert torch.equal(getattr(a[2], k), getattr(b[2], k)), k

@@ -1,13 +1,17 @@
-"""The CUDA kernels' per-env arithmetic (csrc/physics_step.cu,
+"""The CUDA kernels' cooperative per-env body (csrc/physics_step.cu,
 ``env_control_step``, B1 flat and B2 on a heightfield) compiled for the host
 with a C++ compiler and held to the plain version (physics/aba.py via
 DecimatedEnvStep.plain).
 
-The kernel itself runs only on a card (tests/test_torch_physics.py and
+The kernel itself runs only on a card (tests/test_torch_kernel_cuda.py and
 chip_smoke.py cover that); this test keeps the arithmetic of the exact kernel
-source under the CPU gate.  It compiles a small host loop that includes the
-.cu file (without __CUDACC__ only the per-env function is seen) and feeds it
-the wrapper's own tables and SoA layout."""
+source under the CPU gate.  Without __CUDACC__ the source's FOR_LANES runs
+the 32 lanes of each phase one after another and SYNC() is empty, so the
+host build runs the warp-cooperative body itself over a host array that
+stands for the env's shared-memory workspace (filled with NaN first, so a
+read of a word no phase wrote shows).  Running the lanes in reverse order
+must give the same bits: no lane may read what another writes in the same
+phase.  The harness feeds the body the wrapper's own tables and SoA layout."""
 import ctypes
 import shutil
 import subprocess
@@ -26,30 +30,38 @@ from extended_legged_gym_tpu_torch.terrain import Terrain, flat_terrain, from_nu
 MODEL = "extended_legged_gym_tpu/robots/data/anymal_c.json"
 HARNESS = r"""
 #include "%s"
+#include <limits>
+#include <vector>
 template <bool ROUGH>
 int host_loop(const float* state_in, const float* act, const float* fric, const float* delta,
               const float* tf, const int* ti, const float* tex, float* state_out, float* tau_out,
               float* gf_out, float* fpos_out, float* fvel_out, int B) {
   const int nj = ti[TI_NJ], ng = ti[TI_NG], nf = ti[TI_NF];
+  const WsLayout L = ws_layout(ti[TI_NB], nj, ng, nf, ROUGH);
   const int NS = 13 + 2 * nj + 2 * ng;
+  std::vector<float> ws(L.words);
   for (int e = 0; e < B; ++e) {
-    float s[13 + 2 * MAX_NJ + 2 * MAX_NG], a[MAX_NJ], tau[MAX_NJ];
-    float gf[3 * MAX_NG], fp[3 * MAX_NF], fv[3 * MAX_NF];
-    for (int r = 0; r < NS; ++r) s[r] = state_in[r * B + e];
-    for (int j = 0; j < nj; ++j) a[j] = act[j * B + e] * tf[TF_ASCALE];
-    env_control_step<ROUGH>(tf, ti, reinterpret_cast<const float4*>(tex), s, a, fric[e],
-                            delta[e], tau, gf, fp, fv);
-    for (int r = 0; r < NS; ++r) state_out[r * B + e] = s[r];
-    for (int j = 0; j < nj; ++j) tau_out[j * B + e] = tau[j];
-    for (int r = 0; r < 3 * ng; ++r) gf_out[r * B + e] = gf[r];
-    for (int r = 0; r < 3 * nf; ++r) { fpos_out[r * B + e] = fp[r]; fvel_out[r * B + e] = fv[r]; }
+    std::fill(ws.begin(), ws.end(), std::numeric_limits<float>::quiet_NaN());
+    for (int r = 0; r < NS; ++r) ws[L.S + r] = state_in[r * B + e];
+    for (int j = 0; j < nj; ++j) ws[L.ACT + j] = act[j * B + e] * tf[TF_ASCALE];
+    ws[L.FRIC] = fric[e];
+    ws[L.DELTA] = delta[e];
+    env_control_step<ROUGH>(tf, ti, reinterpret_cast<const float4*>(tex), ws.data());
+    for (int r = 0; r < NS; ++r) state_out[r * B + e] = ws[L.S + r];
+    for (int j = 0; j < nj; ++j) tau_out[j * B + e] = ws[L.TAU + j];
+    for (int r = 0; r < 3 * ng; ++r) gf_out[r * B + e] = ws[L.GF + r];
+    for (int r = 0; r < 3 * nf; ++r) {
+      fpos_out[r * B + e] = ws[L.FP + r];
+      fvel_out[r * B + e] = ws[L.FV + r];
+    }
   }
   return 0;
 }
 extern "C" int host_step(const float* state_in, const float* act, const float* fric,
                          const float* delta, const float* tf, const int* ti, const float* tex,
                          float* state_out, float* tau_out, float* gf_out, float* fpos_out,
-                         float* fvel_out, int B, int rough) {
+                         float* fvel_out, int B, int rough, int lanes_reversed) {
+  phys_lanes_reversed = lanes_reversed;
   return rough ? host_loop<true>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
                                  gf_out, fpos_out, fvel_out, B)
                : host_loop<false>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
@@ -72,12 +84,14 @@ def host_lib(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(lib), str(src)],
                    check=True, capture_output=True, timeout=300)
     h = ctypes.CDLL(str(lib))
-    h.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int]
+    h.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
     h.host_step.restype = ctypes.c_int
+    h.physics_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    h.physics_workspace_bytes.restype = ctypes.c_int
     return h
 
 
-def _run_host(h, step, st, act, ep):
+def _run_host(h, step, st, act, ep, lanes_reversed=False):
     """The wrapper's SoA packing around the host-compiled kernel body."""
     B, nj, ng, nf = st.base_pos.shape[0], 12, 36, step.nf
     state = torch.cat([st.base_pos.T, st.base_quat.T, st.joint_pos.T, st.base_lin_vel.T,
@@ -90,7 +104,7 @@ def _run_host(h, step, st, act, ep):
     h.host_step(state.data_ptr(), a.data_ptr(), ep.friction_scale.data_ptr(),
                 ep.base_mass_delta.data_ptr(), tf.data_ptr(), ti.data_ptr(), tex.data_ptr(),
                 out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fp.data_ptr(), fv.data_ptr(), B,
-                int(step.rough))
+                int(step.rough), int(lanes_reversed))
     o = out.T
     new = st.replace(base_pos=o[:, :3], base_quat=o[:, 3:7], joint_pos=o[:, 7:19],
                      base_lin_vel=o[:, 19:22], base_ang_vel=o[:, 22:25], joint_vel=o[:, 25:37],
@@ -176,3 +190,54 @@ def test_rough_kernel_body_matches_plain(host_lib, terrain):
     np.testing.assert_allclose(fp.numpy(), rep.foot_pos.numpy(), atol=1e-4)
     np.testing.assert_allclose(fv.numpy(), rep.foot_vel.numpy(), atol=1e-2)
     np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
+
+
+@pytest.mark.parametrize("rough", [False, True])
+def test_kernel_body_is_lane_order_free(host_lib, rough):
+    """The lanes of every phase run last to first give the same bits as first
+    to last: within a phase no lane reads what another lane writes, so the
+    warp's lanes may run in any order (the kernel's summation orders are
+    fixed, no atomics)."""
+    model = load_model(MODEL)
+    B = 16
+    if rough:
+        env = rough_env(B, "cpu")
+        step, origins = env.decimated_step, env.reset_all(seed=0).env_origins
+    else:
+        step = pk.make_decimated_env_step(model, default_sim_params(), flat_terrain(), 4,
+                                          np.full(12, 80.0, np.float32),
+                                          np.full(12, 2.0, np.float32), model.default_dof_pos, 0.5)
+        origins = None
+    st, ep, act = near_standing(model, B, 3, "cpu", origins)
+    fwd = _run_host(host_lib, step, st, act, ep)
+    rev = _run_host(host_lib, step, st, act, ep, lanes_reversed=True)
+    for a, b in zip(fwd[1:], rev[1:]):
+        assert torch.equal(a, b)
+    for name in TOLS:
+        assert torch.equal(getattr(fwd[0], name), getattr(rev[0], name)), name
+    assert bool(torch.isfinite(fwd[2]).all()) and float(fwd[2][..., 2].sum()) > 100.0 * B
+
+
+def test_workspace_size_matches_formula(host_lib):
+    """The wrapper's shared-memory size for ANYmal-C is its formula and the
+    CUDA source's layout; a model whose block would not fit is refused with
+    its sizes."""
+    model = load_model(MODEL)
+    nb, nj, ng, nf = 13, 12, 36, 4
+    up4 = lambda n: (n + 3) // 4 * 4
+    flat_words = up4(up4(up4(92 * nb + (13 + 2 * nj + 2 * ng) + 3 * nj + 2) + 36)
+                     + 28 * max(ng, nb) + 9 * ng)
+    assert flat_words == 2712 and pk.workspace_words(nb, nj, ng, nf) == flat_words
+    assert pk.workspace_words(nb, nj, ng, nf, rough=True) == flat_words + 4 * ng
+    step = pk.make_decimated_env_step(model, default_sim_params(), flat_terrain(), 4,
+                                      np.full(12, 80.0, np.float32), np.full(12, 2.0, np.float32),
+                                      model.default_dof_pos, 0.5)
+    assert step.ws_bytes == 4 * flat_words == host_lib.physics_workspace_bytes(nb, nj, ng, nf, 0)
+    tables = 4 * (pk.TF_SIZE + pk.TI_FULL)
+    assert pk.block_shared_bytes(nb, nj, ng, nf, True) == pk.ENVS_PER_BLOCK * 4 * (flat_words + 144) + tables
+    for sizes in ((20, 19, 60, 4), (32, 31, 64, 8), (5, 4, 3, 1)):
+        for rough in (0, 1):
+            assert 4 * pk.workspace_words(*sizes, bool(rough)) == host_lib.physics_workspace_bytes(
+                *sizes, rough)
+    with pytest.raises(ValueError, match=r"nb=40 nj=39 ng=400 nf=4: a block of 4 envs needs \d+ bytes"):
+        pk.block_shared_bytes(40, 39, 400, 4, rough=True)

@@ -161,9 +161,42 @@ def test_wrapper_rejects_bad_inputs(setup):
 def test_table_layout_fits_model(setup):
     _, model, _ = setup
     step = _wrapper(model)
-    assert step.tf_host.shape == (pk.TF_SIZE,) and step.ti_host.shape == (pk.TI_SIZE,)
+    assert step.tf_host.shape == (pk.TF_SIZE,) and step.ti_host.shape == (pk.TI_FULL,)
     assert list(step.ti_host[:6]) == [13, 12, 36, 4, 4, 0]
+    # the tree schedule: base, hips, thighs, shanks; geoms body by body; children
+    ti = step.ti_host
+    assert list(ti[pk.TI_DEPTH:pk.TI_DEPTH + 13]) == [0] + [1, 2, 3] * 4 and ti[pk.TI_MAXD] == 3
+    assert list(ti[pk.TI_LVL:pk.TI_LVL + 13]) == [0, 1, 4, 7, 10, 2, 5, 8, 11, 3, 6, 9, 12]
+    assert list(ti[pk.TI_LOFF:pk.TI_LOFF + 5]) == [0, 1, 5, 9, 13]
+    goff, gslot = ti[pk.TI_GOFF:pk.TI_GOFF + 14], ti[pk.TI_GSLOT:pk.TI_GSLOT + 36]
+    assert sorted(gslot) == list(range(36))
+    for g, b in enumerate(model.geom_body):
+        assert goff[b] <= gslot[g] < goff[b + 1]
+    assert list(ti[pk.TI_COFF:pk.TI_COFF + 14]) == [0, 4, 5, 6, 6, 7, 8, 8, 9, 10, 10, 11, 12, 12]
+    assert list(ti[pk.TI_CLIST:pk.TI_CLIST + 12]) == [1, 4, 7, 10, 2, 3, 5, 6, 8, 9, 11, 12]
     assert list(step.ti_host[pk.TI_FGEOM:pk.TI_FGEOM + 4]) == [35, 19, 27, 11]
     np.testing.assert_allclose(step.tf_host[pk.TF_MASS:pk.TF_MASS + 13], model.mass)
     # the itemized, blockwise count behind chip_smoke.py's bound for ANYmal-C
     assert pk.control_step_flops(13, 12, 36, 4, 4) == 88916
+
+
+def test_env_step_route_matches_jax_aba(setup):
+    """The V-control route (make_env_step: one substep, torques passed in) on
+    CPU tensors against the JAX ABA step with the same torques; the rough
+    route refuses flat ground."""
+    jmodel, model, jstep = setup
+    B = 8
+    jst = _states(jmodel, B, seed=5)
+    tau = (20.0 * np.random.default_rng(6).standard_normal((B, 12))).astype(np.float32)
+    jep, ep = _env_params(B, seed=7)
+    jnew, jrep = jstep(jst, jnp.asarray(tau), jep)
+    step = pk.make_env_step(model, default_sim_params())
+    assert (step.decimation, step.control_type, step.action_scale, step.rough) == (1, "T", 1.0, False)
+    new, rep = step(_to_torch(jst), torch.as_tensor(tau), ep)
+    for k in FIELDS:
+        np.testing.assert_allclose(getattr(new, k).numpy(), np.asarray(getattr(jnew, k)),
+                                   atol=TOLS.get(k, 1e-4), err_msg=k)
+    np.testing.assert_allclose(rep.foot_pos.numpy(), np.asarray(jrep.foot_pos), atol=1e-4)
+    assert pk.EnvStep.launches == pk.EnvStep.rough_launches == 0
+    with pytest.raises(ValueError, match="heightfield"):
+        pk.make_env_step_rough(model, default_sim_params(), flat_terrain())

@@ -171,7 +171,6 @@ def test_fall_resets_on_spawn_origins(envs):
     (lambda c: setattr(c.noise, "add_noise", True), "add_noise"),
     (lambda c: setattr(c.commands, "heading_command", True), "heading_command"),
     (lambda c: setattr(c.terrain, "trimesh_contacts", True), "triangle-mesh contacts"),
-    (lambda c: setattr(c.control, "control_type", "V"), "control_type V"),
 ])
 def test_env_refuses_what_is_not_ported(change, match):
     cfg = small_rough(anymal_c_rough_cfg())
@@ -179,6 +178,44 @@ def test_env_refuses_what_is_not_ported(change, match):
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
         LeggedRobot(cfg, device="cpu")
+
+
+def v_control(cfg):
+    """V control with gains the explicit substep keeps stable (as in
+    tests/test_torch_env.py)."""
+    cfg.control.control_type = "V"
+    cfg.control.stiffness = {"HAA": 10.0, "HFE": 10.0, "KFE": 10.0}
+    cfg.control.damping = {"HAA": 0.01, "HFE": 0.01, "KFE": 0.01}
+    return cfg
+
+
+def test_v_control_step_matches_jax():
+    """V control on the 2 x 2 grid, 4 envs, two control steps: the port env
+    (per-substep torques, one B2-route launch per substep on the card) against
+    the JAX env with the ABA solver."""
+    jc = v_control(small_rough(janymal_c_rough_cfg()))
+    jc.sim.solver = "aba"
+    jenv = JLeggedRobot(jc)
+    env = LeggedRobot(v_control(small_rough(anymal_c_rough_cfg())), device="cpu")
+    assert env.decimated_step is None and env.substep.rough
+    jstep = jax.jit(jenv.step)
+    js = jenv.reset_all(jax.random.PRNGKey(5))
+    s = to_torch_state(js)
+    rng = np.random.default_rng(3)
+    before = pk.EnvStep.rough_launches, pk.DecimatedEnvStep.rough_launches
+    for i in range(2):
+        a = rng.standard_normal((E, 12)).astype(np.float32)
+        js = jstep(js, jnp.asarray(a))
+        s = env.step(s, torch.as_tensor(a))
+        assert not bool(np.asarray(js.reset_buf).any())
+        for k in PHYS:
+            np.testing.assert_allclose(getattr(s.phys, k).numpy(), np.asarray(getattr(js.phys, k)),
+                                       atol=5e-3, err_msg=f"step {i} {k}")
+        np.testing.assert_allclose(s.torques.numpy(), np.asarray(js.torques), atol=0.5)
+        np.testing.assert_allclose(s.obs.numpy(), np.asarray(js.obs), atol=1e-2, err_msg=f"obs {i}")
+        np.testing.assert_allclose(s.rew.numpy(), np.asarray(js.rew), atol=1e-3, err_msg=f"rew {i}")
+    assert float(s.torques.abs().max()) > 1.0
+    assert (pk.EnvStep.rough_launches, pk.DecimatedEnvStep.rough_launches) == before
 
 
 def test_rough_policy_matches_jax():
