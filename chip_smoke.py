@@ -13,9 +13,10 @@ Phases (each prints its seconds; the run fails rather than overrun):
 3. B1 against its plain version (physics/aba.py) on the card, a block's
    shared memory printed: one control step from seeded near-standing states
    with random actions at every batch the MPC path launches it with (8 x 128,
-   8 x 97, 8 x 3 and 8 envs) and at 2048, then 25 control steps of drift at
-   8 x 97, and two launches on the same inputs at 1024, which must agree bit
-   for bit;
+   8 x 97, 8 x 3 and 8 envs; 128, 97 and 3 at E=1), at 2048 and at 4096 (the
+   training fleet), then 25 control steps of drift at 8 x 97, and two
+   launches on the same inputs at 1024 and at 4096, which must agree bit for
+   bit;
 4. B2 against its plain version on the anymal_c_rough curriculum grid
    (900 x 900 heightfield): near-standing states on the spawn origins, one
    control step at 32 envs (the rough evaluation) and 4096 (the rough
@@ -35,9 +36,21 @@ Phases (each prints its seconds; the run fails rather than overrun):
    flat MPC task's env, the rough evaluation env) stepped V_STEPS control
    steps each; each route's launches are read from its run and must be
    V_STEPS x decimation;
-8. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+8. training path: flat PPO at the TRAIN_r5 recipe (anymal_c_flat, 4096
+   envs, [128, 64, 32] actor and critic, 24 steps per env, seed 2, from
+   scratch) through the task registry, OnPolicyRunner.learn for
+   TRAIN_ITERS iterations; B1's launches are read from this run and must be
+   TRAIN_ITERS x 24 (B2's 0); the loss and every parameter must be finite,
+   no update skipped and the parameters changed; the seconds per iteration
+   split into collection and update, and env-steps per second; then a
+   save, a load into a fresh runner and equal actions from both policies;
+9. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+   (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
+10. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-9. the kernel line (JSON) and the result line.
+11. the kernel line (JSON) and the result line.  B1's entry counts its
+   launches on the MPC path and the training path and carries its times at
+   the training fleet's 4096.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -54,6 +67,7 @@ TIME_LIMIT_S = 280.0            # the whole run, build included
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl")
 ROUGH_CKPT = os.path.join(ROOT, "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl")
+FLAT_CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl")
 CMD = 0.7
 
 # kernel against plain, one control step (tests/test_physics_kernel.py:66-84):
@@ -62,8 +76,10 @@ CMD = 0.7
 ONE_STEP_ATOL = dict(base_pos=1e-4, base_quat=1e-4, joint_pos=5e-4, base_lin_vel=2e-2,
                      base_ang_vel=2e-2, joint_vel=5e-2, contact_anchor=1e-4, foot_pos=1e-4)
 # the main path's batches at E=8: sampling rollouts (8 x 128), fd polish
-# (8 x 97), line search (8 x 3), the main env step (8); and the rollout cell's 2048
-CHECK_B = (1024, 776, 24, 8, 2048)
+# (8 x 97), line search (8 x 3), the main env step (8); the solve cell's at
+# E=1 (128, 97, 3); the rollout cell's 2048 and the training fleet's 4096
+# (three waves of 3 blocks of 4 envs per SM)
+CHECK_B = (1024, 776, 24, 8, 128, 97, 3, 2048, 4096)
 # B2: the rough evaluation's fleet and the rough config's training fleet
 ROUGH_B = (32, 4096)
 ROUGH_STEPS = 20
@@ -74,6 +90,8 @@ DRIFT_ATOL = dict(base_pos=2e-2, base_quat=3e-2, joint_pos=0.1, base_lin_vel=0.1
                   base_ang_vel=0.5, joint_vel=2.0)
 # V-control routes: flat at the MPC path's batch, rough at the fleet's
 V_FLAT_B, V_ROUGH_B, V_STEPS = 1024, 4096, 10
+# training path: iterations of the TRAIN_r5 recipe
+TRAIN_ITERS = 5
 
 
 def log(msg):
@@ -179,6 +197,73 @@ def drift_check(name, step, B, states):
             fail(f"{name} 25-step drift of {k} is {drift[k]:.3g} > {tol}")
 
 
+def training_path(dev):
+    """TRAIN_ITERS iterations of flat PPO at the TRAIN_r5 recipe through the
+    task registry and OnPolicyRunner.learn, then a save/load round trip.
+    Returns B1's launches in the learn call."""
+    import tempfile
+
+    import torch
+
+    from extended_legged_gym_tpu_torch import robots  # noqa: F401
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
+
+    args = get_args(argv=["--task", "anymal_c_flat", "--seed", "2", "--num_envs", "4096",
+                          "--max_iterations", str(TRAIN_ITERS), "--device", str(dev)])
+    env, _ = task_registry.make_env(args.task, args)
+    with tempfile.TemporaryDirectory() as root:
+        runner, train_cfg = task_registry.make_alg_runner(env, args.task, args, log_root=root)
+        net = runner.network
+        log(f"training: {env.num_envs} envs, obs {env.num_obs}, actor "
+            f"{train_cfg.policy.actor_hidden_dims}, T={runner.num_steps_per_env}, "
+            f"{train_cfg.algorithm.num_learning_epochs} epochs x "
+            f"{train_cfg.algorithm.num_mini_batches} minibatches, seed {train_cfg.seed}")
+        before = torch.cat([p.detach().reshape(-1) for p in net.parameters()]).clone()
+        torch.cuda.synchronize()
+        pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+        runner.learn(train_cfg.runner.max_iterations, log_interval=1)
+        torch.cuda.synchronize()
+        b1, b2 = pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches
+        with open(os.path.join(runner.log_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        after = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
+        want = TRAIN_ITERS * runner.num_steps_per_env
+        log(f"training path: B1 launches={b1} (want {want}) B2 launches={b2}; losses "
+            + " ".join(f"{r['loss']:.4g}" for r in rows) + "; nonfinite_skips "
+            + " ".join(f"{r['nonfinite_skips']:g}" for r in rows)
+            + f"; learning rate {rows[-1]['learning_rate']:.3g}; reward stage "
+            f"{rows[-1]['reward_stage']:g}")
+        if b1 != want or b2 != 0:
+            fail(f"the training path launched B1 {b1} times (want {want}) and B2 {b2} (want 0)")
+        if not all(math.isfinite(r["loss"]) for r in rows) or not torch.isfinite(after).all():
+            fail("non-finite loss or parameters on the training path")
+        if any(r["nonfinite_skips"] != 0 for r in rows):
+            fail("the training path skipped updates for non-finite values")
+        if torch.equal(before, after):
+            fail("the training path left the parameters unchanged")
+        steady = rows[1:] or rows
+        col = sum(r["collection_s"] for r in steady) / len(steady)
+        upd = sum(r["update_s"] for r in steady) / len(steady)
+        log(f"training iteration (mean of iterations 2-{len(rows)}): {col + upd:.4f} s = "
+            f"collection {col:.4f} s + update {upd:.4f} s; "
+            f"{env.num_envs * runner.num_steps_per_env / (col + upd):.0f} env-steps/s "
+            f"(first iteration {rows[0]['collection_s'] + rows[0]['update_s']:.3f} s)")
+
+        path = os.path.join(root, "roundtrip.pkl")
+        runner.save(path)
+        fresh = OnPolicyRunner(env, train_cfg)
+        fresh.load(path)
+        obs = runner.env_state.obs
+        a, b = runner.get_inference_policy()(obs), fresh.get_inference_policy()(obs)
+        log(f"save/load round trip: iteration {fresh.iteration}, actions equal "
+            f"{torch.equal(a, b)} (max diff {(a - b).abs().max().item():.3g})")
+        if not torch.equal(a, b):
+            fail("the loaded runner's policy gives other actions than the saved one's")
+    return b1
+
+
 def main():
     import torch
 
@@ -188,16 +273,15 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
 
-    from extended_legged_gym_tpu_torch.models.networks import ActorCritic, load_jax_checkpoint
     from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
     from extended_legged_gym_tpu_torch.physics import load_model
-    from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_rough_ppo_cfg
     from extended_legged_gym_tpu_torch.robots.anymal_c_traj import (
         AnymalCTrajGradSampling, anymal_c_traj_sampling_cfg)
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
     from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
     from extended_legged_gym_tpu_torch.envs.legged_robot import LeggedRobot
-    from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg, run_eval
+    from extended_legged_gym_tpu_torch.scripts.eval_policy import evaluate
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg, load_policy, run_eval
     from extended_legged_gym_tpu_torch.utils.device import resolve_device
 
     # ---------------- 1. device ----------------
@@ -230,6 +314,7 @@ def main():
                                                   flat_stats))
     drift_check("B1", step, 776, near_standing(model, 776, 7, dev))
     bit_identical("B1", step, 1024, near_standing(model, 1024, 1, dev))
+    bit_identical("B1", step, 4096, near_standing(model, 4096, 3, dev))
     log("no single PyTorch call computes this step; library_ms is null")
     phase_done("B1 vs plain", t0)
 
@@ -293,11 +378,7 @@ def main():
 
     # ---------------- 6. rough path ----------------
     t0 = time.perf_counter()
-    pol = anymal_c_rough_ppo_cfg().policy
-    net = ActorCritic(renv.num_obs, renv.num_actions, pol.actor_hidden_dims,
-                      pol.critic_hidden_dims, pol.activation)
-    net.load_state_dict(load_jax_checkpoint(ROUGH_CKPT))
-    net = net.to(dev).eval()
+    policy = load_policy(ROUGH_CKPT, renv.num_obs, renv.num_actions, dev)
     cmd = torch.zeros(renv.num_envs, 4, device=dev)
     cmd[:, 0] = CMD
     with torch.no_grad():
@@ -305,7 +386,7 @@ def main():
         pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
         up, finite = [], True
         for _ in range(ROUGH_STEPS):
-            state = renv.step(state, net.act_inference(state.obs)).replace(commands=cmd)
+            state = renv.step(state, policy(state.obs)).replace(commands=cmd)
             up.append(state.projected_gravity[:, 2])
             finite = finite and bool(torch.isfinite(state.obs).all())
         torch.cuda.synchronize()
@@ -324,7 +405,7 @@ def main():
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(ROUGH_STEPS):
-            state = renv.step(state, net.act_inference(state.obs)).replace(commands=cmd)
+            state = renv.step(state, policy(state.obs)).replace(commands=cmd)
         torch.cuda.synchronize()
         sps = ROUGH_STEPS / (time.perf_counter() - t1)
     log(f"rough env at {renv.num_envs} envs, policy included: {sps:.2f} control steps/s "
@@ -376,7 +457,25 @@ def main():
             fail(f"{name}: non-finite observations under V control")
     phase_done("V routes", t0)
 
-    # ---------------- 8. timing ----------------
+    # ---------------- 8. training path ----------------
+    t0 = time.perf_counter()
+    train_launches = training_path(dev)
+    phase_done("training path", t0)
+
+    # ---------------- 9. flat evaluation ----------------
+    t0 = time.perf_counter()
+    res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
+    log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
+        f"achieved/command={res['achieved_over_command']} upright_mean={res['upright_mean']} "
+        f"base_height_mean={res['base_height_mean']} falls={res['falls']}")
+    if not all(math.isfinite(res[k]) for k in ("achieved_over_command", "upright_mean",
+                                                "base_height_mean", "falls")):
+        fail("non-finite values in the flat evaluation")
+    if not res["upright_mean"] < -0.9:
+        fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
+    phase_done("flat evaluation", t0)
+
+    # ---------------- 10. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -386,12 +485,13 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 9. result ----------------
+    # ---------------- 11. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
     for name, launches, err, ks in (
-            ("flat_decimated_physics_step", flat_launches, flat_err, flat_stats[1024]),
+            ("flat_decimated_physics_step", flat_launches + train_launches, flat_err,
+             flat_stats[4096]),
             ("rough_decimated_physics_step", rough_launches, rough_err, rough_stats[4096]),
             ("flat_physics_substep_v_route", v_launches["flat_v"], v_err["flat_v"],
              v_stats["flat_v"][V_FLAT_B]),

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..models.networks import ActorCritic, load_jax_checkpoint
+from ..models.networks import ActorCritic, inference_policy, load_jax_checkpoint
 from ..physics.engine import EnvPhysParams, PhysState
 from ..trajopt.sampling import TrajGradSampling, TrajOptConfig
 from ..utils.config import configclass
@@ -196,13 +196,10 @@ class RobotTrajGradSampling(RobotBatchRollout):
             raise NotImplementedError("the port warm-starts from the JAX runner's .pkl checkpoints")
         net = ActorCritic(self.num_obs, self.num_actions, tuple(ws.actor_hidden_dims),
                           tuple(ws.critic_hidden_dims), ws.activation)
-        net.load_state_dict(load_jax_checkpoint(path))
+        state_dict, obs_norm = load_jax_checkpoint(path)
+        net.load_state_dict(state_dict)
         net = net.to(self.device).eval()
-
-        def policy(obs: torch.Tensor) -> torch.Tensor:
-            with torch.no_grad():
-                return net.act_inference(obs)
-
+        policy = inference_policy(net, obs_norm)
         self.rl_net, self.rl_policy = net, policy
         return policy
 

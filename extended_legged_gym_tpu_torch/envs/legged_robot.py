@@ -28,12 +28,29 @@ Semantics kept from the JAX env, reference quirks included:
   scan (``measure_heights``) under the yaw-rotated grid of measured points,
   appended to the observation as ``clip(z - 0.5 - h, -1, 1)`` times its scale;
 * staged reward scales (``multi_stage_rewards``), selected by the state's
-  ``reward_stage``.
+  ``reward_stage``;
+* domain randomization drawn once per env at ``reset_all`` and kept for the
+  env's lifetime: friction from 64 buckets in ``friction_range``, the base
+  mass delta uniform in ``added_mass_range`` (both reach the kernel through
+  ``EnvPhysParams``);
+* pushes: every ``push_interval`` control steps of the global
+  ``common_step`` counter the world-frame xy base velocity is overwritten
+  with U(+-``max_push_vel_xy``), after the derived body-frame velocities were
+  computed (so this step's observation and reward see the unpushed values);
+* observation noise ``(2u - 1) * noise_scale_vec`` added before the clip, in
+  ``step`` only;
+* ``episode_metrics``: scalar sums over the episodes that ended (count,
+  return, length and each term's sum over ``max_episode_length_s``), read and
+  cleared by the runner.
+
+The env draws from its own ``torch.Generator``; each kind of draw in a step
+has its own method (``_draw_push_vel``, ``_draw_obs_noise``), so a test can
+inject the JAX env's draws.
 
 Not ported yet (the constructor raises): terrain-curriculum promotion
 (``curriculum`` without ``freeze_terrain_levels``), triangle-mesh contacts,
-heading commands, command curriculum, domain randomization, pushes,
-observation noise, privileged observations, a termination reward.
+heading commands, command curriculum, privileged observations, a termination
+reward.
 """
 from __future__ import annotations
 
@@ -87,6 +104,8 @@ class EnvState:
     episode_sums: Dict[str, torch.Tensor]
     episode_return: torch.Tensor     # [B]
     env_origins: torch.Tensor        # [B, 3]
+    common_step: torch.Tensor        # scalar int64, control steps since reset_all (pushes)
+    episode_metrics: Dict[str, torch.Tensor]  # scalar sums over finished episodes
     measured_heights: Optional[torch.Tensor] = None  # [B, P] terrain under the height scan
     terrain_levels: Optional[torch.Tensor] = None    # [B] int64
     terrain_types: Optional[torch.Tensor] = None     # [B] int64
@@ -171,7 +190,9 @@ class LeggedRobot:
                                for k in ("lin_vel_x", "lin_vel_y", "ang_vel_yaw")}
         self.resampling_interval = int(np.clip(cfg.commands.resampling_time / self.dt, 1,
                                                np.iinfo(np.int32).max))
+        self.push_interval = max(1, int(cfg.domain_rand.push_interval_s / self.dt))
         self._prepare_reward_functions()
+        self.noise_scale_vec = torch.as_tensor(self._make_noise_scale_vec(), device=self.device)
 
         # P and T control: torques and substeps fused in one launch per control
         # step; V control: one launch per substep with the torques passed in
@@ -211,11 +232,7 @@ class LeggedRobot:
             "triangle-mesh contacts (terrain.trimesh_contacts)": tc.trimesh_contacts,
             "commands.heading_command": cfg.commands.heading_command,
             "commands.curriculum": cfg.commands.curriculum,
-            "domain_rand.randomize_friction": cfg.domain_rand.randomize_friction,
-            "domain_rand.randomize_base_mass": cfg.domain_rand.randomize_base_mass,
-            "domain_rand.push_robots": cfg.domain_rand.push_robots,
             "rewards.scales.termination": cfg.rewards.scales.termination != 0,
-            "noise.add_noise": cfg.noise.add_noise,
             "env.num_privileged_obs": cfg.env.num_privileged_obs is not None,
         }
         bad = [k for k, v in unsupported.items() if v]
@@ -275,9 +292,56 @@ class LeggedRobot:
             dtype=torch.float32, device=self.device).reshape(n_stages, len(names))
         self.reward_scales = self.reward_scale_table[0]
 
+    def _make_noise_scale_vec(self) -> np.ndarray:
+        """Per-observation noise amplitude: the scales times ``noise_level``
+        times the observation scales; zero on commands and actions."""
+        cfg, nj = self.cfg, self.num_dof
+        ns, os_, level = cfg.noise.noise_scales, cfg.normalization.obs_scales, cfg.noise.noise_level
+        vec = np.zeros(self.num_obs, np.float32)
+        vec[0:3] = ns.lin_vel * level * os_.lin_vel
+        vec[3:6] = ns.ang_vel * level * os_.ang_vel
+        vec[6:9] = ns.gravity * level
+        n = 12                                           # commands carry no noise
+        vec[n:n + nj] = ns.dof_pos * level * os_.dof_pos
+        vec[n + nj:n + 2 * nj] = ns.dof_vel * level * os_.dof_vel
+        n += 2 * nj + self.num_actions                   # nor do the previous actions
+        if cfg.terrain.measure_heights and n < self.num_obs:
+            vec[n:n + self.num_height_points] = (ns.height_measurements * level
+                                                 * os_.height_measurements)
+        return vec
+
     def _uniform(self, shape, lo, hi) -> torch.Tensor:
         u = torch.rand(shape, generator=self.generator, device=self.device)
         return lo + (hi - lo) * u
+
+    def _draw_env_params(self) -> EnvPhysParams:
+        """Per-env friction (64 buckets in ``friction_range``) and base mass
+        delta, where the config randomizes them."""
+        B, dr = self.num_envs, self.cfg.domain_rand
+        friction = torch.ones(B, device=self.device)
+        mass_delta = torch.zeros(B, device=self.device)
+        if dr.randomize_friction:
+            buckets = self._uniform((64,), *dr.friction_range)
+            ids = torch.randint(0, 64, (B,), generator=self.generator, device=self.device)
+            friction = buckets[ids]
+        if dr.randomize_base_mass:
+            mass_delta = self._uniform((B,), *dr.added_mass_range)
+        return EnvPhysParams(friction, mass_delta)
+
+    def _draw_push_vel(self) -> torch.Tensor:
+        """World-frame xy velocities [B, 2] for a push (drawn every step, used
+        on push steps only, so the host never reads ``common_step``)."""
+        m = self.cfg.domain_rand.max_push_vel_xy
+        return self._uniform((self.num_envs, 2), -m, m)
+
+    def _draw_obs_noise(self, shape) -> torch.Tensor:
+        """Uniform noise in [-1, 1) of ``shape``, scaled by ``noise_scale_vec``
+        by the caller."""
+        return 2.0 * torch.rand(shape, generator=self.generator, device=self.device) - 1.0
+
+    def zero_episode_metrics(self) -> Dict[str, torch.Tensor]:
+        keys = ["count", "return_sum", "length_sum"] + ["rew_" + n for n in self.reward_names]
+        return {k: torch.zeros((), device=self.device) for k in keys}
 
     # ------------------------------------------------------------------ reset
     def reset_all(self, seed: Optional[int] = None) -> EnvState:
@@ -288,12 +352,13 @@ class LeggedRobot:
         all_envs = torch.ones(B, dtype=torch.bool, device=dev)
         levels, types = self.init_terrain_levels, self.init_terrain_types
         env_origins = self._compute_env_origins(levels, types)
+        env_params = self._draw_env_params()
         phys = self._sample_init_phys(env_origins)
         commands = self._sample_commands(torch.zeros(B, 4, device=dev), all_envs)
         nf, ng = self.num_feet, self.model.ng
         z = lambda *s: torch.zeros(*s, device=dev)
         state = EnvState(
-            phys=phys, env_params=EnvPhysParams(torch.ones(B, device=dev), torch.zeros(B, device=dev)),
+            phys=phys, env_params=env_params,
             episode_length=torch.zeros(B, dtype=torch.int64, device=dev),
             commands=commands,
             actions=z(B, self.num_actions), last_actions=z(B, self.num_actions),
@@ -308,6 +373,8 @@ class LeggedRobot:
             time_out_buf=torch.zeros(B, dtype=torch.bool, device=dev),
             episode_sums={n: z(B) for n in self.reward_names},
             episode_return=z(B), env_origins=env_origins,
+            common_step=torch.zeros((), dtype=torch.int64, device=dev),
+            episode_metrics=self.zero_episode_metrics(),
             measured_heights=z(B, self.num_height_points), terrain_levels=levels,
             terrain_types=types, reward_stage=torch.zeros((), dtype=torch.int64, device=dev))
         state = self._refresh_derived(state)
@@ -396,9 +463,16 @@ class LeggedRobot:
         return sample_height(self.terrain, world[..., :2])
 
     def _post_physics_step(self, state: EnvState) -> EnvState:
-        state = state.replace(episode_length=state.episode_length + 1)
+        state = state.replace(episode_length=state.episode_length + 1,
+                              common_step=state.common_step + 1)
         resample = (state.episode_length % self.resampling_interval) == 0
         state = state.replace(commands=self._sample_commands(state.commands, resample))
+        if self.cfg.domain_rand.push_robots:
+            push_now = (state.common_step % self.push_interval) == 0
+            lin = state.phys.base_lin_vel
+            pushed = torch.cat([self._draw_push_vel(), lin[:, 2:]], dim=1)
+            state = state.replace(phys=state.phys.replace(
+                base_lin_vel=torch.where(push_now, pushed, lin)))
 
         reset_buf, time_out = self._check_termination(state)
         nan0 = torch.nan_to_num
@@ -414,8 +488,11 @@ class LeggedRobot:
         state, rew = self._compute_reward(state)
         state = state.replace(rew=rew, episode_return=state.episode_return + rew)
         state = self._reset_envs(state, reset_buf)
+        obs = self._compute_observations(state)
+        if self.cfg.noise.add_noise:
+            obs = obs + self._draw_obs_noise(obs.shape) * self.noise_scale_vec
         clip_obs = self.cfg.normalization.clip_observations
-        return state.replace(obs=torch.clamp(self._compute_observations(state), -clip_obs, clip_obs))
+        return state.replace(obs=torch.clamp(obs, -clip_obs, clip_obs))
 
     def _check_termination(self, state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
         if len(self.termination_geoms):
@@ -436,8 +513,15 @@ class LeggedRobot:
         commands = self._sample_commands(state.commands, mask)
         fmask = mask.to(torch.float32)
         zero = lambda x: torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
+        # fold the finished episodes into the accumulators before zeroing
+        em = dict(state.episode_metrics)
+        em["count"] = em["count"] + fmask.sum()
+        em["return_sum"] = em["return_sum"] + (state.episode_return * fmask).sum()
+        em["length_sum"] = em["length_sum"] + (state.episode_length * fmask).sum()
+        for k, v in state.episode_sums.items():
+            em["rew_" + k] = em["rew_" + k] + (v * fmask).sum() / self.max_episode_length_s
         return state.replace(
-            phys=phys, commands=commands,
+            phys=phys, commands=commands, episode_metrics=em,
             episode_return=state.episode_return * (1.0 - fmask),
             episode_length=torch.where(mask, torch.zeros_like(state.episode_length), state.episode_length),
             last_actions=zero(state.last_actions), last_dof_vel=zero(state.last_dof_vel),

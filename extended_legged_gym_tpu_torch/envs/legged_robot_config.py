@@ -2,9 +2,9 @@
 ``envs/legged_robot_config.py``).
 
 Field names and defaults match the JAX package.  Only the groups and fields
-that the ported slices (flat sampling MPC, rough-terrain policy evaluation)
-read are here; the env raises on the settings the port does not implement yet
-(those fields stay so it can).
+that the ported slices (flat sampling MPC, rough-terrain policy evaluation,
+flat PPO training) read are here; the env raises on the settings the port
+does not implement yet (those fields stay so it can).
 """
 from __future__ import annotations
 
@@ -99,9 +99,12 @@ class AssetCfg:
 @configclass
 class DomainRandCfg:
     randomize_friction: bool = True
+    friction_range: List[float] = [0.5, 1.25]
     randomize_base_mass: bool = False
     added_mass_range: List[float] = [-1.0, 1.0]
     push_robots: bool = True
+    push_interval_s: float = 15.0
+    max_push_vel_xy: float = 1.0
 
 
 @configclass
@@ -155,8 +158,20 @@ class NormalizationCfg:
 
 
 @configclass
+class NoiseScalesCfg:
+    dof_pos: float = 0.01
+    dof_vel: float = 1.5
+    lin_vel: float = 0.1
+    ang_vel: float = 0.2
+    gravity: float = 0.05
+    height_measurements: float = 0.1
+
+
+@configclass
 class NoiseCfg:
     add_noise: bool = True
+    noise_level: float = 1.0
+    noise_scales: NoiseScalesCfg = NoiseScalesCfg()
 
 
 @configclass
@@ -187,25 +202,56 @@ class LeggedRobotCfg:
 
 
 # ---------------------------------------------------------------------------
-# Policy and runner settings (the part of the JAX package's PPO config that
-# building and loading a policy reads; the algorithm settings come with PPO)
+# PPO / training config
 # ---------------------------------------------------------------------------
 
 @configclass
 class PolicyCfg:
+    init_noise_std: float = 1.0
     actor_hidden_dims: List[int] = [512, 256, 128]
     critic_hidden_dims: List[int] = [512, 256, 128]
     activation: str = "elu"
 
 
 @configclass
+class AlgorithmCfg:
+    value_loss_coef: float = 1.0
+    use_clipped_value_loss: bool = True
+    clip_param: float = 0.2
+    entropy_coef: float = 0.01
+    num_learning_epochs: int = 5
+    num_mini_batches: int = 4
+    learning_rate: float = 1.0e-3
+    schedule: str = "adaptive"
+    gamma: float = 0.99
+    lam: float = 0.95
+    desired_kl: float = 0.01
+    max_grad_norm: float = 1.0
+    normalize_advantage_per_mini_batch: bool = False
+    # distillation
+    gradient_length: int = 15
+    # RND and symmetry augmentation (not ported: the runner raises on them)
+    rnd_cfg: Optional[dict] = None
+    symmetry_cfg: Optional[dict] = None
+
+
+@configclass
 class RunnerCfg:
+    policy_class_name: str = "ActorCritic"
+    num_steps_per_env: int = 24
     max_iterations: int = 1500
+    save_interval: int = 50
     experiment_name: str = "test"
+    run_name: str = ""
+    resume: bool = False
+    load_run: int = -1
+    checkpoint: int = -1
+    empirical_normalization: bool = False
 
 
 @configclass
 class LeggedRobotCfgPPO:
     seed: int = 1
     policy: PolicyCfg = PolicyCfg()
+    algorithm: AlgorithmCfg = AlgorithmCfg()
     runner: RunnerCfg = RunnerCfg()

@@ -1,4 +1,4 @@
-"""ANYmal-C rough-terrain task configs (port of the rough configs of
+"""ANYmal-C task configs (port of the rough and flat configs of
 ``robots/anymal_c.py``).
 
 The robot model is read in place from the JAX package's committed JSON."""
@@ -50,6 +50,51 @@ def anymal_c_rough_cfg() -> LeggedRobotCfg:
     s.action_rate = [-0.0025, -0.01]
     s.collision = [-0.25, -1.0]
     return cfg
+
+
+def anymal_c_flat_cfg() -> LeggedRobotCfg:
+    """The flat-terrain task: 48-dim observations, no height scan, the
+    orientation and torque penalties on.  The JAX package departs from the
+    reference flat settings (command resampling every 10 s, yaw rate in
+    [-1, 1], friction in [0.5, 1.25]) because its PD-actuated engine trains
+    stably with them; the port keeps its values, the staged penalties (25%
+    until the mean episode reward passes 3.0) and the base-height calibration
+    ([-10, -40], target 0.5 m) included."""
+    cfg = anymal_c_rough_cfg()
+    cfg.env.num_observations = 48
+    cfg.terrain.mesh_type = "plane"
+    cfg.terrain.measure_heights = False
+    cfg.terrain.curriculum = False
+    cfg.rewards.scales.orientation = -5.0
+    cfg.rewards.scales.torques = -2.5e-5
+    cfg.rewards.scales.feet_air_time = 2.0
+    cfg.rewards.max_contact_force = 350.0
+    cfg.commands.resampling_time = 10.0
+    cfg.commands.ranges.ang_vel_yaw = [-1.0, 1.0]
+    cfg.domain_rand.friction_range = [0.5, 1.25]
+    cfg.rewards.multi_stage_rewards = True
+    cfg.rewards.reward_max_stage = 1
+    cfg.rewards.reward_stage_threshold = 3.0
+    s = cfg.rewards.scales
+    s.lin_vel_z = [-0.5, -2.0]
+    s.ang_vel_xy = [-0.0125, -0.05]
+    s.orientation = [-1.25, -5.0]
+    s.torques = [-6.25e-6, -2.5e-5]
+    s.dof_acc = [-6.25e-8, -2.5e-7]
+    s.action_rate = [-0.0025, -0.01]
+    s.collision = [-0.25, -1.0]
+    s.base_height = [-10.0, -40.0]
+    return cfg
+
+
+def anymal_c_ppo_cfg(experiment: str = "flat_anymal_c") -> LeggedRobotCfgPPO:
+    """Flat-task PPO settings: the [128, 64, 32] actor and critic."""
+    train = LeggedRobotCfgPPO()
+    train.runner.experiment_name = experiment
+    train.runner.max_iterations = 300
+    train.policy.actor_hidden_dims = [128, 64, 32]
+    train.policy.critic_hidden_dims = [128, 64, 32]
+    return train
 
 
 def anymal_c_rough_ppo_cfg(experiment: str = "rough_anymal_c") -> LeggedRobotCfgPPO:

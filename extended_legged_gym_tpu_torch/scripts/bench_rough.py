@@ -30,14 +30,14 @@ def rough_step_profile(envs, steps=50, reps=10, cmd_mps=0.7, device="cuda"):
     from torch.profiler import ProfilerActivity, profile
 
     env = LeggedRobot(eval_cfg(envs), device=device)
-    net = load_policy(CKPT, env.num_obs, env.num_actions, env.device)
+    policy = load_policy(CKPT, env.num_obs, env.num_actions, env.device)
     s = env.reset_all(seed=0)
     cmd = torch.zeros_like(s.commands)
     cmd[:, 0] = cmd_mps
     s = s.replace(commands=cmd)
 
     def step(s):
-        return env.step(s, net.act_inference(s.obs)).replace(commands=cmd)
+        return env.step(s, policy(s.obs)).replace(commands=cmd)
 
     for _ in range(5):
         s = step(s)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..envs.legged_robot import LeggedRobot
-from ..models.networks import ActorCritic, load_jax_checkpoint
+from ..models.networks import ActorCritic, inference_policy, load_jax_checkpoint
 from ..robots.anymal_c import anymal_c_rough_cfg, anymal_c_rough_ppo_cfg
 from ..utils.device import resolve_device
 
@@ -74,12 +74,15 @@ def eval_cfg(envs: int, max_init_level=None):
     return cfg
 
 
-def load_policy(ckpt: str, num_obs: int, num_actions: int, device) -> ActorCritic:
+def load_policy(ckpt: str, num_obs: int, num_actions: int, device):
+    """The checkpoint's deterministic policy ``obs -> actions`` on ``device``
+    (its observation normalizer applied, where it has one)."""
     pol = anymal_c_rough_ppo_cfg().policy
     net = ActorCritic(num_obs, num_actions, pol.actor_hidden_dims, pol.critic_hidden_dims,
                       pol.activation)
-    net.load_state_dict(load_jax_checkpoint(ckpt))
-    return net.to(device).eval()
+    state_dict, obs_norm = load_jax_checkpoint(ckpt)
+    net.load_state_dict(state_dict)
+    return inference_policy(net.to(device).eval(), obs_norm)
 
 
 @torch.no_grad()
@@ -87,7 +90,7 @@ def run_eval(ckpt, envs, steps, warmup, cmd_mps, max_init_level=None, seed=0, de
     device = resolve_device(device)
     cfg = eval_cfg(envs, max_init_level)
     env = LeggedRobot(cfg, device=device)
-    net = load_policy(ckpt, env.num_obs, env.num_actions, device)
+    policy = load_policy(ckpt, env.num_obs, env.num_actions, device)
 
     s = env.reset_all(seed=seed)
     cmd = torch.zeros_like(s.commands)
@@ -95,7 +98,7 @@ def run_eval(ckpt, envs, steps, warmup, cmd_mps, max_init_level=None, seed=0, de
     s = s.replace(commands=cmd)
     rec = {k: [] for k in ("vx", "up", "fell", "lvl", "typ")}
     for i in range(warmup + steps):
-        s = env.step(s, net.act_inference(s.obs)).replace(commands=cmd)
+        s = env.step(s, policy(s.obs)).replace(commands=cmd)
         if i >= warmup:
             rec["vx"].append(s.base_lin_vel[:, 0])
             rec["up"].append(s.projected_gravity[:, 2])

@@ -20,7 +20,9 @@ def nets():
     with open(CKPT, "rb") as f:
         params = pickle.load(f)["params"]
     net = ActorCritic(48, 12, (128, 64, 32), (128, 64, 32), "elu")
-    net.load_state_dict(load_jax_checkpoint(CKPT))
+    state_dict, obs_norm = load_jax_checkpoint(CKPT)
+    assert obs_norm is None
+    net.load_state_dict(state_dict)
     return jnet, params, net
 
 

@@ -1,9 +1,10 @@
 """The port must run where JAX is not installed: every module of
-extended_legged_gym_tpu_torch (the rough-terrain modules and
-scripts/eval_rough.py among them), and chip_smoke.py, import with jax,
-jaxlib, flax, optax and the JAX package blocked, and the committed warm-start
-and rough-terrain checkpoints (whose optimizer states pickle optax objects)
-load."""
+extended_legged_gym_tpu_torch (the rough-terrain modules, the PPO runner, the
+task registry and the train and eval scripts among them), and chip_smoke.py,
+import with jax, jaxlib, flax, optax and the JAX package blocked, and the
+committed warm-start, rough-terrain and flat-training checkpoints (whose
+optimizer states pickle optax objects) load, the last into the port's
+runner."""
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
 ROUGH_CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
+FLAT_CKPT = "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl"
 
 SCRIPT = textwrap.dedent(f"""
     import importlib, importlib.abc, pkgutil, sys
@@ -34,17 +36,26 @@ SCRIPT = textwrap.dedent(f"""
         importlib.import_module(n)
     import chip_smoke
     from extended_legged_gym_tpu_torch.models.networks import ActorCritic, load_jax_checkpoint
-    sd = load_jax_checkpoint({CKPT!r})
+    sd, _ = load_jax_checkpoint({CKPT!r})
     net = ActorCritic(48, 12, (128, 64, 32), (128, 64, 32))
     net.load_state_dict(sd)
     from extended_legged_gym_tpu_torch.scripts.eval_rough import load_policy
-    for m in ("terrain.generator", "robots.anymal_c", "scripts.eval_rough"):
+    for m in ("terrain.generator", "robots.anymal_c", "scripts.eval_rough", "rl.ppo",
+              "rl.runner", "utils.task_registry", "utils.metrics", "scripts.train",
+              "scripts.eval_policy", "scripts.record_training"):
         assert pkg.__name__ + "." + m in names, m
-    rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")
+    from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
+    env, _ = task_registry.make_env("anymal_c_flat", get_args(argv=["--num_envs", "2"]),
+                                    device="cpu")
+    runner, _ = task_registry.make_alg_runner(env, "anymal_c_flat", log_root="unused")
+    assert runner.load({FLAT_CKPT!r})["iteration"] == 2000
+    import torch
+    rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules; actor", tuple(sd["actor.0.weight"].shape),
-          "rough actor", tuple(rough.actor[0].weight.shape))
+          "rough actions", tuple(rough.shape))
 """)
 
 
@@ -52,9 +63,9 @@ def test_port_imports_and_loads_checkpoint_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "actor (128, 48)" in proc.stdout and "rough actor (512, 235)" in proc.stdout
+    assert "actor (128, 48)" in proc.stdout and "rough actions (1, 12)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 20
+    assert n >= 27
 
 
 def test_chip_smoke_refuses_without_cuda():

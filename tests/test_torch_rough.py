@@ -1,7 +1,7 @@
 """The rough-terrain slice against the JAX package: the anymal_c_rough env
 (JAX env with the ABA solver) at 4 envs on a 2 x 2 grid with levels frozen,
 the rough policy, the evaluation script's terrain names, and the checkpoint
-loader's refusal of an observation normalizer.
+loader's return of an observation normalizer.
 
 The JAX reset state is carried into the port (JAX PRNG draws cannot be
 reproduced in torch; the spawn levels, origins and terrain can and are
@@ -20,15 +20,13 @@ from extended_legged_gym_tpu.envs.legged_robot import LeggedRobot as JLeggedRobo
 from extended_legged_gym_tpu.models.networks import ActorCritic as JActorCritic
 from extended_legged_gym_tpu.robots.anymal_c import anymal_c_rough_cfg as janymal_c_rough_cfg
 from extended_legged_gym_tpu.scripts.eval_rough import col_type_names as jcol_type_names
-from extended_legged_gym_tpu_torch.envs.legged_robot import EnvState, LeggedRobot
-from extended_legged_gym_tpu_torch.models.networks import ActorCritic, load_jax_checkpoint
+from extended_legged_gym_tpu_torch.envs.legged_robot import LeggedRobot
+from extended_legged_gym_tpu_torch.models.networks import load_jax_checkpoint
 from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
-from extended_legged_gym_tpu_torch.physics import EnvPhysParams, PhysState
 from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_rough_cfg
 from extended_legged_gym_tpu_torch.scripts.eval_rough import col_type_names, load_policy
+from torch_parity import PHYS, to_torch_state
 
-PHYS = ("base_pos", "base_quat", "joint_pos", "base_lin_vel", "base_ang_vel", "joint_vel",
-        "contact_anchor")
 ROUGH_CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
 E = 4
 
@@ -50,27 +48,6 @@ def small_rough(cfg):
     cfg.domain_rand.randomize_friction = False
     cfg.domain_rand.randomize_base_mass = False
     return cfg
-
-
-def to_torch_state(js) -> EnvState:
-    """A JAX EnvState's values as the port's EnvState."""
-    t = lambda x: torch.as_tensor(np.array(x))
-    return EnvState(
-        phys=PhysState(*[t(getattr(js.phys, k)) for k in PHYS]),
-        env_params=EnvPhysParams(t(js.env_params.friction_scale), t(js.env_params.base_mass_delta)),
-        episode_length=t(js.episode_length).to(torch.int64), commands=t(js.commands),
-        actions=t(js.actions), last_actions=t(js.last_actions), last_dof_vel=t(js.last_dof_vel),
-        torques=t(js.torques), feet_air_time=t(js.feet_air_time),
-        feet_contact_time=t(js.feet_contact_time), last_contacts=t(js.last_contacts),
-        base_lin_vel=t(js.base_lin_vel), base_ang_vel=t(js.base_ang_vel),
-        projected_gravity=t(js.projected_gravity), foot_positions=t(js.foot_positions),
-        foot_velocities=t(js.foot_velocities), geom_forces=t(js.geom_forces), obs=t(js.obs),
-        rew=t(js.rew), reset_buf=t(js.reset_buf), time_out_buf=t(js.time_out_buf),
-        episode_sums={k: t(v) for k, v in js.episode_sums.items()},
-        episode_return=t(js.episode_return), env_origins=t(js.env_origins),
-        measured_heights=t(js.measured_heights), terrain_levels=t(js.terrain_levels).to(torch.int64),
-        terrain_types=t(js.terrain_types).to(torch.int64),
-        reward_stage=t(js.reward_stage).to(torch.int64))
 
 
 @pytest.fixture(scope="module")
@@ -166,9 +143,9 @@ def test_fall_resets_on_spawn_origins(envs):
 
 @pytest.mark.parametrize("change, match", [
     (lambda c: setattr(c.terrain, "freeze_terrain_levels", False), "terrain-curriculum promotion"),
-    (lambda c: setattr(c.domain_rand, "randomize_base_mass", True), "randomize_base_mass"),
-    (lambda c: setattr(c.domain_rand, "push_robots", True), "push_robots"),
-    (lambda c: setattr(c.noise, "add_noise", True), "add_noise"),
+    (lambda c: setattr(c.commands, "curriculum", True), "commands.curriculum"),
+    (lambda c: setattr(c.rewards.scales, "termination", -1.0), "rewards.scales.termination"),
+    (lambda c: setattr(c.env, "num_privileged_obs", 48), "env.num_privileged_obs"),
     (lambda c: setattr(c.commands, "heading_command", True), "heading_command"),
     (lambda c: setattr(c.terrain, "trimesh_contacts", True), "triangle-mesh contacts"),
 ])
@@ -222,12 +199,11 @@ def test_rough_policy_matches_jax():
     jnet = JActorCritic(num_actions=12)
     with open(ROUGH_CKPT, "rb") as f:
         params = pickle.load(f)["params"]
-    net = load_policy(ROUGH_CKPT, 235, 12, "cpu")
-    assert tuple(net.actor[0].weight.shape) == (512, 235)
+    policy = load_policy(ROUGH_CKPT, 235, 12, "cpu")
     obs = np.random.default_rng(0).standard_normal((64, 235)).astype(np.float32)
     want = np.asarray(jnet.apply(params, jnp.asarray(obs), method=jnet.act_inference))
-    with torch.no_grad():
-        got = net.act_inference(torch.as_tensor(obs)).numpy()
+    got = policy(torch.as_tensor(obs)).numpy()
+    assert got.shape == (64, 12)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -241,8 +217,10 @@ def test_col_type_names_match_jax(num_cols, props):
 
 
 def test_checkpoint_with_obs_norm_is_refused(tmp_path):
-    """A checkpoint trained with empirical normalization carries ``obs_norm``;
-    the port applies no normalizer yet, so loading it raises."""
+    """A checkpoint trained with empirical normalization carries ``obs_norm``.
+    The loader no longer refuses it: it returns the normalizer beside the
+    parameters (``None`` for a checkpoint without one), and the policy built
+    from it applies the normalizer."""
     rng = np.random.default_rng(0)
     dense = lambda i, o: {"kernel": rng.standard_normal((i, o)).astype(np.float32),
                           "bias": np.zeros(o, np.float32)}
@@ -251,9 +229,13 @@ def test_checkpoint_with_obs_norm_is_refused(tmp_path):
     plain = tmp_path / "plain.pkl"
     with open(plain, "wb") as f:
         pickle.dump({"params": params, "obs_norm": None}, f)
-    assert tuple(load_jax_checkpoint(str(plain))["actor.0.weight"].shape) == (2, 4)
+    sd, norm = load_jax_checkpoint(str(plain))
+    assert tuple(sd["actor.0.weight"].shape) == (2, 4) and norm is None
     normed = tmp_path / "normed.pkl"
+    mean, var = np.arange(4, dtype=np.float32), np.full(4, 4.0, np.float32)
     with open(normed, "wb") as f:
-        pickle.dump({"params": params, "obs_norm": {"mean": np.zeros(4), "var": np.ones(4)}}, f)
-    with pytest.raises(ValueError, match="observation normalizer"):
-        load_jax_checkpoint(str(normed))
+        pickle.dump({"params": params, "obs_norm": {"mean": mean, "var": var}}, f)
+    sd, norm = load_jax_checkpoint(str(normed))
+    np.testing.assert_allclose(norm.mean.numpy(), mean)
+    np.testing.assert_allclose(norm.normalize(torch.ones(4)).numpy(), (1 - mean) / np.sqrt(4 + 1e-8),
+                               rtol=1e-6)
