@@ -44,13 +44,30 @@ Phases (each prints its seconds; the run fails rather than overrun):
    no update skipped and the parameters changed; the seconds per iteration
    split into collection and update, and env-steps per second; then a
    save, a load into a fresh runner and equal actions from both policies;
-9. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+9. rough training path: rough PPO at the TRAIN_ROUGH_r5 recipe
+   (anymal_c_rough, 4096 envs, [512, 256, 128], seed 1, from scratch, the
+   terrain curriculum on) the same way for ROUGH_TRAIN_ITERS iterations;
+   B2's launches must be ROUGH_TRAIN_ITERS x 24 (B1's 0), and besides the
+   checks of phase 8, some env's terrain level must have changed and every
+   level must lie in [0, num_rows);
+10. ray path: the anymal_c_rough_raycast env (levels frozen) at 4096 envs
+   stepped RAY_STEPS control steps by the committed ray checkpoint; B2's
+   launches must be RAY_STEPS; the observation must be 267 wide, its
+   32-ray tail finite and in [0, 1], the robots upright; the ray cast's
+   time per call at 4096 x 32 rays and the env's control steps per second;
+   then a short ray evaluation (128 envs, 50 + 100 steps, levels <= 2,
+   0.5 m/s);
+11. depth camera: one heightfield render at 4096 envs at the terrain
+   estimator's setup (48 x 24 rays resized to 32 x 16), finite and in
+   [0, 1] (to float32 rounding of the resize's weights), and its time;
+12. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-10. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+13. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-11. the kernel line (JSON) and the result line.  B1's entry counts its
-   launches on the MPC path and the training path and carries its times at
-   the training fleet's 4096.
+14. the kernel line (JSON) and the result line.  B1's entry counts its
+   launches on the MPC path and the flat training path, B2's on the rough
+   path, the ray path and the rough training path; both carry their times
+   at the training fleet's 4096.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -68,6 +85,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl")
 ROUGH_CKPT = os.path.join(ROOT, "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl")
 FLAT_CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl")
+RAY_CKPT = os.path.join(ROOT, "logs/rough_raycast_anymal_c/Aug21_13-41-24_r5_rayc/model_final.pkl")
 CMD = 0.7
 
 # kernel against plain, one control step (tests/test_physics_kernel.py:66-84):
@@ -90,8 +108,17 @@ DRIFT_ATOL = dict(base_pos=2e-2, base_quat=3e-2, joint_pos=0.1, base_lin_vel=0.1
                   base_ang_vel=0.5, joint_vel=2.0)
 # V-control routes: flat at the MPC path's batch, rough at the fleet's
 V_FLAT_B, V_ROUGH_B, V_STEPS = 1024, 4096, 10
-# training path: iterations of the TRAIN_r5 recipe
+# training paths: the fleet and iterations of the TRAIN_r5 and
+# TRAIN_ROUGH_r5 recipes (the ray path runs the same fleet)
+FLEET = 4096
 TRAIN_ITERS = 5
+ROUGH_TRAIN_ITERS = 3
+# ray path: control steps of the 4096-env ray task; its evaluation's command
+RAY_STEPS = 20
+RAY_CMD = 0.5
+# the depth render may leave [0, 1] by float32 rounding of the resize's
+# normalized weights (as jax.image.resize does)
+DEPTH_SLACK = 1e-6
 
 
 def log(msg):
@@ -197,10 +224,13 @@ def drift_check(name, step, B, states):
             fail(f"{name} 25-step drift of {k} is {drift[k]:.3g} > {tol}")
 
 
-def training_path(dev):
-    """TRAIN_ITERS iterations of flat PPO at the TRAIN_r5 recipe through the
-    task registry and OnPolicyRunner.learn, then a save/load round trip.
-    Returns B1's launches in the learn call."""
+def training_path(dev, task, seed, iters):
+    """``iters`` iterations of PPO on ``task`` at its training recipe (4096
+    envs, from scratch) through the task registry and OnPolicyRunner.learn,
+    then a save/load round trip.  On a generated terrain the curriculum must
+    have moved some env's level, within [0, num_rows).  Returns the launches
+    of the physics kernel of the task's terrain (B1 flat, B2 rough) in the
+    learn call; the other kernel must not launch."""
     import tempfile
 
     import torch
@@ -210,43 +240,58 @@ def training_path(dev):
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
 
-    args = get_args(argv=["--task", "anymal_c_flat", "--seed", "2", "--num_envs", "4096",
-                          "--max_iterations", str(TRAIN_ITERS), "--device", str(dev)])
+    args = get_args(argv=["--task", task, "--seed", str(seed), "--num_envs", str(FLEET),
+                          "--max_iterations", str(iters), "--device", str(dev)])
     env, _ = task_registry.make_env(args.task, args)
+    rough = env.custom_origins
+    ours, other = ("B2", "B1") if rough else ("B1", "B2")
     with tempfile.TemporaryDirectory() as root:
         runner, train_cfg = task_registry.make_alg_runner(env, args.task, args, log_root=root)
         net = runner.network
-        log(f"training: {env.num_envs} envs, obs {env.num_obs}, actor "
+        log(f"{task} training: {env.num_envs} envs, obs {env.num_obs}, actor "
             f"{train_cfg.policy.actor_hidden_dims}, T={runner.num_steps_per_env}, "
             f"{train_cfg.algorithm.num_learning_epochs} epochs x "
             f"{train_cfg.algorithm.num_mini_batches} minibatches, seed {train_cfg.seed}")
         before = torch.cat([p.detach().reshape(-1) for p in net.parameters()]).clone()
+        levels0 = runner.env_state.terrain_levels.clone()
         torch.cuda.synchronize()
         pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
         runner.learn(train_cfg.runner.max_iterations, log_interval=1)
         torch.cuda.synchronize()
-        b1, b2 = pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches
+        counts = {"B1": pk.DecimatedEnvStep.launches, "B2": pk.DecimatedEnvStep.rough_launches}
         with open(os.path.join(runner.log_dir, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         after = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
-        want = TRAIN_ITERS * runner.num_steps_per_env
-        log(f"training path: B1 launches={b1} (want {want}) B2 launches={b2}; losses "
-            + " ".join(f"{r['loss']:.4g}" for r in rows) + "; nonfinite_skips "
-            + " ".join(f"{r['nonfinite_skips']:g}" for r in rows)
+        want = iters * runner.num_steps_per_env
+        log(f"{task} training path: {ours} launches={counts[ours]} (want {want}) {other} "
+            f"launches={counts[other]}; losses " + " ".join(f"{r['loss']:.4g}" for r in rows)
+            + "; nonfinite_skips " + " ".join(f"{r['nonfinite_skips']:g}" for r in rows)
             + f"; learning rate {rows[-1]['learning_rate']:.3g}; reward stage "
             f"{rows[-1]['reward_stage']:g}")
-        if b1 != want or b2 != 0:
-            fail(f"the training path launched B1 {b1} times (want {want}) and B2 {b2} (want 0)")
+        if counts[ours] != want or counts[other] != 0:
+            fail(f"the {task} training path launched {ours} {counts[ours]} times (want {want}) "
+                 f"and {other} {counts[other]} (want 0)")
         if not all(math.isfinite(r["loss"]) for r in rows) or not torch.isfinite(after).all():
-            fail("non-finite loss or parameters on the training path")
+            fail(f"non-finite loss or parameters on the {task} training path")
         if any(r["nonfinite_skips"] != 0 for r in rows):
-            fail("the training path skipped updates for non-finite values")
+            fail(f"the {task} training path skipped updates for non-finite values")
         if torch.equal(before, after):
-            fail("the training path left the parameters unchanged")
+            fail(f"the {task} training path left the parameters unchanged")
+        if rough:
+            levels = runner.env_state.terrain_levels
+            moved = int((levels != levels0).sum())
+            lo, hi = int(levels.min()), int(levels.max())
+            log(f"terrain curriculum: {moved} of {env.num_envs} envs changed level; levels "
+                f"{lo}..{hi} (rows {env.max_terrain_level}), mean "
+                + " -> ".join(f"{r['terrain_level']:.3f}" for r in rows))
+            if moved == 0:
+                fail("the rough training path moved no env's terrain level")
+            if lo < 0 or hi >= env.max_terrain_level:
+                fail(f"terrain levels {lo}..{hi} outside [0, {env.max_terrain_level})")
         steady = rows[1:] or rows
         col = sum(r["collection_s"] for r in steady) / len(steady)
         upd = sum(r["update_s"] for r in steady) / len(steady)
-        log(f"training iteration (mean of iterations 2-{len(rows)}): {col + upd:.4f} s = "
+        log(f"{task} training iteration (mean of iterations 2-{len(rows)}): {col + upd:.4f} s = "
             f"collection {col:.4f} s + update {upd:.4f} s; "
             f"{env.num_envs * runner.num_steps_per_env / (col + upd):.0f} env-steps/s "
             f"(first iteration {rows[0]['collection_s'] + rows[0]['update_s']:.3f} s)")
@@ -261,7 +306,85 @@ def training_path(dev):
             f"{torch.equal(a, b)} (max diff {(a - b).abs().max().item():.3g})")
         if not torch.equal(a, b):
             fail("the loaded runner's policy gives other actions than the saved one's")
-    return b1
+    return counts[ours]
+
+
+def ray_path(dev):
+    """The ray-observation task at 4096 envs stepped by the committed ray
+    checkpoint, the ray cast's time, a short ray evaluation and the depth
+    camera.  Returns B2's launches in the stepped run."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.envs.legged_robot import LeggedRobot
+    from extended_legged_gym_tpu_torch.envs.legged_robot_config import DepthCfg
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.perception.depth_camera import DepthCameraRaycast
+    from extended_legged_gym_tpu_torch.scripts import bench_mpc
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg, load_policy, run_eval
+
+    t0 = time.perf_counter()
+    env = LeggedRobot(eval_cfg(FLEET, task="anymal_c_rough_raycast"), device=dev)
+    policy = load_policy(RAY_CKPT, env.num_obs, env.num_actions, dev)
+    cmd = torch.zeros(env.num_envs, 4, device=dev)
+    cmd[:, 0] = RAY_CMD
+    with torch.no_grad():
+        state = env.reset_all(seed=0).replace(commands=cmd)
+        pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+        up, tail_ok = [], True
+        for _ in range(RAY_STEPS):
+            state = env.step(state, policy(state.obs)).replace(commands=cmd)
+            up.append(state.projected_gravity[:, 2])
+            tail = state.obs[:, 235:]
+            tail_ok = tail_ok and bool(torch.isfinite(state.obs).all()
+                                       and ((tail >= 0.0) & (tail <= 1.0)).all())
+        torch.cuda.synchronize()
+        launches, b1 = pk.DecimatedEnvStep.rough_launches, pk.DecimatedEnvStep.launches
+        upright = torch.stack(up).mean().item()
+        log(f"ray path: {RAY_STEPS} control steps, {env.num_envs} envs, obs "
+            f"{tuple(state.obs.shape)} ({env.raycaster.num_rays} rays): B2 launches={launches} "
+            f"B1 launches={b1} upright_mean={upright:.4f} ray tail finite and in [0, 1]={tail_ok} "
+            f"mean {state.obs[:, 235:].mean().item():.4f}")
+        if launches != RAY_STEPS or b1:
+            fail(f"the ray path launched B2 {launches} times (want {RAY_STEPS}) and B1 {b1}")
+        if tuple(state.obs.shape) != (env.num_envs, 267) or not tail_ok:
+            fail("the ray observation is not 267 wide with a finite ray tail in [0, 1]")
+        if not upright < -0.9:
+            fail(f"ray-path robots did not stay upright (upright_mean {upright:.3f})")
+        pos, quat = state.phys.base_pos, state.phys.base_quat
+        cast_ms = bench_mpc.cuda_ms(lambda: env.raycaster.cast(pos, quat), reps=20, warmup=3)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(RAY_STEPS):
+            state = env.step(state, policy(state.obs)).replace(commands=cmd)
+        torch.cuda.synchronize()
+        sps = RAY_STEPS / (time.perf_counter() - t1)
+        log(f"ray cast at {env.num_envs} envs x {env.raycaster.num_rays} rays: {cast_ms:.4f} ms "
+            f"per call (CUDA events); ray env {sps:.2f} control steps/s, policy included")
+    res = run_eval(RAY_CKPT, 128, 100, 50, RAY_CMD, max_init_level=2, seed=7, device=dev,
+                   task="anymal_c_rough_raycast")
+    log(f"short ray eval (128 envs, 50+100 steps, levels <= 2, {RAY_CMD} m/s): achieved/command="
+        f"{res['achieved_over_command']} upright_mean={res['upright_mean']} falls={res['falls']} "
+        f"by type {res['falls_by_terrain_type']}")
+    if not all(math.isfinite(res[k]) for k in ("achieved_over_command", "upright_mean")):
+        fail("non-finite values in the short ray eval")
+    phase_done("ray path", t0)
+
+    t0 = time.perf_counter()
+    dcfg = DepthCfg()
+    dcfg.camera_type, dcfg.original, dcfg.resized = "Warp", [48, 24], [32, 16]
+    cam = DepthCameraRaycast(dcfg, env.num_envs, env.terrain, device=dev)
+    with torch.no_grad():
+        frame = cam.render(pos, quat)
+        render_ms = bench_mpc.cuda_ms(lambda: cam.render(pos, quat), reps=10, warmup=2)
+    ok = bool(torch.isfinite(frame).all()) and -DEPTH_SLACK <= frame.min().item() \
+        and frame.max().item() <= 1.0 + DEPTH_SLACK
+    log(f"depth camera: {env.num_envs} envs, {dcfg.original[0]} x {dcfg.original[1]} rays -> "
+        f"{tuple(frame.shape[1:])}: {render_ms:.4f} ms per render (CUDA events), range "
+        f"[{frame.min().item():.4g}, {frame.max().item():.4g}], mean {frame.mean().item():.4f}")
+    if tuple(frame.shape) != (env.num_envs, 16, 32) or not ok:
+        fail(f"the depth render is not finite in [0, 1] at {env.num_envs} x 16 x 32")
+    phase_done("depth camera", t0)
+    return launches
 
 
 def main():
@@ -459,10 +582,18 @@ def main():
 
     # ---------------- 8. training path ----------------
     t0 = time.perf_counter()
-    train_launches = training_path(dev)
+    train_launches = training_path(dev, "anymal_c_flat", 2, TRAIN_ITERS)
     phase_done("training path", t0)
 
-    # ---------------- 9. flat evaluation ----------------
+    # ---------------- 9. rough training path ----------------
+    t0 = time.perf_counter()
+    rough_train_launches = training_path(dev, "anymal_c_rough", 1, ROUGH_TRAIN_ITERS)
+    phase_done("rough training path", t0)
+
+    # ---------------- 10-11. ray path and depth camera ----------------
+    ray_launches = ray_path(dev)
+
+    # ---------------- 12. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -475,7 +606,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 10. timing ----------------
+    # ---------------- 13. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -485,14 +616,15 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 11. result ----------------
+    # ---------------- 14. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
     for name, launches, err, ks in (
             ("flat_decimated_physics_step", flat_launches + train_launches, flat_err,
              flat_stats[4096]),
-            ("rough_decimated_physics_step", rough_launches, rough_err, rough_stats[4096]),
+            ("rough_decimated_physics_step", rough_launches + ray_launches + rough_train_launches,
+             rough_err, rough_stats[4096]),
             ("flat_physics_substep_v_route", v_launches["flat_v"], v_err["flat_v"],
              v_stats["flat_v"][V_FLAT_B]),
             ("rough_physics_substep_v_route", v_launches["rough_v"], v_err["rough_v"],

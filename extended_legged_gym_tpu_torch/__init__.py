@@ -17,5 +17,7 @@ Conventions:
 
 The hand-written kernels are the fused, decimated physics step in its two
 regimes, B1 on flat ground and B2 on a heightfield (``csrc/physics_step.cu``,
-wrapped by ``ops/physics_kernel.py``).
+wrapped by ``ops/physics_kernel.py``).  The perception modules (ray
+patterns, heightfield raycasts, the depth camera) are plain PyTorch, as the
+JAX package's are plain ``jnp``.
 """

@@ -27,6 +27,14 @@ Semantics kept from the JAX env, reference quirks included:
   drawn from the generator's numpy stream right after the grid, the height
   scan (``measure_heights``) under the yaw-rotated grid of measured points,
   appended to the observation as ``clip(z - 0.5 - h, -1, 1)`` times its scale;
+* terrain-curriculum promotion at reset (``curriculum`` without
+  ``freeze_terrain_levels``): an env that walked more than half a subterrain
+  from its origin moves up a level, one that walked less than half its
+  commanded distance moves down; past the top row it gets a uniform level,
+  and its new origin is set before its initial state is drawn;
+* ray observations (``raycaster.enable_raycast`` builds the caster,
+  ``attach_to_obs`` appends its normalized inverse distances to the
+  observation after the height scan; they carry no noise);
 * staged reward scales (``multi_stage_rewards``), selected by the state's
   ``reward_stage``;
 * domain randomization drawn once per env at ``reset_all`` and kept for the
@@ -44,12 +52,12 @@ Semantics kept from the JAX env, reference quirks included:
   cleared by the runner.
 
 The env draws from its own ``torch.Generator``; each kind of draw in a step
-has its own method (``_draw_push_vel``, ``_draw_obs_noise``), so a test can
-inject the JAX env's draws.
+has its own method (``_draw_push_vel``, ``_draw_obs_noise``,
+``_draw_random_levels``, ``_draw_spawn_offset``), so a test can inject the
+JAX env's draws.
 
-Not ported yet (the constructor raises): terrain-curriculum promotion
-(``curriculum`` without ``freeze_terrain_levels``), triangle-mesh contacts,
-heading commands, command curriculum, privileged observations, a termination
+Not ported yet (the constructor raises): triangle-mesh contacts, heading
+commands, command curriculum, privileged observations, a termination
 reward.
 """
 from __future__ import annotations
@@ -63,6 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.physics_kernel import make_decimated_env_step, make_env_step, make_env_step_rough
+from ..perception.raycast import RayCaster
 from ..physics.contact import default_contact_params
 from ..physics.engine import EnvPhysParams, PhysState, StepReport, default_sim_params
 from ..physics.model import geom_indices_matching
@@ -183,6 +192,9 @@ class LeggedRobot:
         self.height_points = torch.as_tensor(pts, device=self.device)
         self.num_height_points = pts.shape[0]
 
+        self.raycaster = (RayCaster(cfg.raycaster, self.terrain, self.device)
+                          if cfg.raycaster.enable_raycast else None)
+
         self._init_env_origins()
 
         rng = cfg.commands.ranges
@@ -223,12 +235,9 @@ class LeggedRobot:
     @staticmethod
     def _check_supported(cfg: LeggedRobotCfg):
         tc = cfg.terrain
-        rough = tc.mesh_type in ("heightfield", "trimesh")
         unsupported = {
             f"terrain.mesh_type {tc.mesh_type!r}": tc.mesh_type not in (
                 "plane", "none", "heightfield", "trimesh"),
-            "terrain-curriculum promotion (terrain.curriculum without "
-            "terrain.freeze_terrain_levels)": rough and tc.curriculum and not tc.freeze_terrain_levels,
             "triangle-mesh contacts (terrain.trimesh_contacts)": tc.trimesh_contacts,
             "commands.heading_command": cfg.commands.heading_command,
             "commands.curriculum": cfg.commands.curriculum,
@@ -250,6 +259,7 @@ class LeggedRobot:
             types = np.arange(self.num_envs) % tg.num_cols
             self.terrain_origins = torch.as_tensor(np.asarray(tg.env_origins, np.float32),
                                                    device=self.device)
+            self.max_terrain_level = tg.num_rows
         else:
             n = int(np.ceil(np.sqrt(self.num_envs)))
             xx, yy = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
@@ -334,6 +344,16 @@ class LeggedRobot:
         m = self.cfg.domain_rand.max_push_vel_xy
         return self._uniform((self.num_envs, 2), -m, m)
 
+    def _draw_random_levels(self) -> torch.Tensor:
+        """Uniform levels [B] in ``[0, max_terrain_level)`` for envs promoted
+        past the top row (drawn at every reset, used where needed)."""
+        return torch.randint(0, self.max_terrain_level, (self.num_envs,),
+                             generator=self.generator, device=self.device)
+
+    def _draw_spawn_offset(self) -> torch.Tensor:
+        """The xy spawn offset [B, 2] about a generated terrain's origin."""
+        return self._uniform((self.num_envs, 2), -0.5, 0.5)
+
     def _draw_obs_noise(self, shape) -> torch.Tensor:
         """Uniform noise in [-1, 1) of ``shape``, scaled by ``noise_scale_vec``
         by the caller."""
@@ -389,7 +409,7 @@ class LeggedRobot:
         ang_vel = init[10:13] + self._uniform((B, 3), -0.5, 0.5)
         dof_pos = self.default_dof_pos * self._uniform((B, self.num_dof), 0.5, 1.5)
         if self.custom_origins:
-            pos = pos + F.pad(self._uniform((B, 2), -0.5, 0.5), (0, 1))
+            pos = pos + F.pad(self._draw_spawn_offset(), (0, 1))
         anchor = pos[:, None, :2].expand(B, self.model.ng, 2).clone()
         return PhysState(base_pos=pos, base_quat=quat, joint_pos=dof_pos, base_lin_vel=lin_vel,
                          base_ang_vel=ang_vel, joint_vel=torch.zeros(B, self.num_dof, device=self.device),
@@ -507,9 +527,29 @@ class LeggedRobot:
         time_out = state.episode_length > self.max_episode_length
         return contact | ~finite | time_out, time_out
 
+    def _promote_levels(self, state: EnvState, mask: torch.Tensor) -> torch.Tensor:
+        """Terrain-curriculum levels after the resets of ``mask``: up a level
+        past half a subterrain from the origin, down a level short of half
+        the commanded distance, a uniform level past the top row."""
+        levels = state.terrain_levels
+        dist = torch.linalg.norm(state.phys.base_pos[:, :2] - state.env_origins[:, :2], dim=1)
+        move_up = dist > self.terrain_gen.env_length / 2
+        cmd_dist = torch.linalg.norm(state.commands[:, :2], dim=1) * self.max_episode_length_s * 0.5
+        move_down = (dist < cmd_dist) & ~move_up
+        new = levels + move_up.to(levels.dtype) - move_down.to(levels.dtype)
+        new = torch.where(new >= self.max_terrain_level, self._draw_random_levels(),
+                          new.clamp(min=0))
+        return torch.where(mask, new, levels)
+
     def _reset_envs(self, state: EnvState, mask: torch.Tensor) -> EnvState:
-        """Re-draw root/dof states and commands where ``mask`` is set."""
-        phys = _where(mask, self._sample_init_phys(state.env_origins), state.phys)
+        """Re-draw root/dof states and commands where ``mask`` is set, on the
+        origins of the promoted levels under the terrain curriculum."""
+        tc = self.cfg.terrain
+        levels, origins = state.terrain_levels, state.env_origins
+        if self.custom_origins and tc.curriculum and not tc.freeze_terrain_levels:
+            levels = self._promote_levels(state, mask)
+            origins = self._compute_env_origins(levels, state.terrain_types)
+        phys = _where(mask, self._sample_init_phys(origins), state.phys)
         commands = self._sample_commands(state.commands, mask)
         fmask = mask.to(torch.float32)
         zero = lambda x: torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
@@ -522,6 +562,7 @@ class LeggedRobot:
             em["rew_" + k] = em["rew_" + k] + (v * fmask).sum() / self.max_episode_length_s
         return state.replace(
             phys=phys, commands=commands, episode_metrics=em,
+            terrain_levels=levels, env_origins=origins,
             episode_return=state.episode_return * (1.0 - fmask),
             episode_length=torch.where(mask, torch.zeros_like(state.episode_length), state.episode_length),
             last_actions=zero(state.last_actions), last_dof_vel=zero(state.last_dof_vel),
@@ -545,6 +586,8 @@ class LeggedRobot:
         if self.num_height_points:
             parts.append(torch.clamp(state.phys.base_pos[:, 2:3] - 0.5 - state.measured_heights,
                                      -1.0, 1.0) * os_.height_measurements)
+        if self.raycaster is not None and self.cfg.raycaster.attach_to_obs:
+            parts.append(self.raycaster.observations(state.phys.base_pos, state.phys.base_quat))
         return torch.cat(parts, dim=-1)
 
     # ------------------------------------------------------------------ rewards

@@ -2,9 +2,10 @@
 ``envs/legged_robot_config.py``).
 
 Field names and defaults match the JAX package.  Only the groups and fields
-that the ported slices (flat sampling MPC, rough-terrain policy evaluation,
-flat PPO training) read are here; the env raises on the settings the port
-does not implement yet (those fields stay so it can).
+that the ported slices (flat sampling MPC, rough-terrain policy evaluation
+and training, flat PPO training, ray perception) read are here; the env
+raises on the settings the port does not implement yet (those fields stay so
+it can).
 """
 from __future__ import annotations
 
@@ -186,6 +187,44 @@ class SimCfg:
 
 
 @configclass
+class RaycasterCfg:
+    enable_raycast: bool = False
+    # append the normalized inverse-distance ray channels to the policy obs
+    # (perceptive PPO tasks, e.g. anymal_c_rough_raycast); enable_raycast
+    # alone builds the caster without widening the observation
+    attach_to_obs: bool = False
+    ray_pattern: str = "cone"    # single, grid, cone, spherical, spherical2
+    spherical_num_azimuth: int = 8
+    spherical_num_elevation: int = 4
+    num_rays: int = 32
+    ray_angle: float = 60.0
+    max_distance: float = 10.0
+    attach_yaw_only: bool = False
+    offset_pos: List[float] = [0.5, 0.0, 0.0]
+    terrain_file: Optional[str] = None
+    spherical2_num_points: int = 32
+    spherical2_polar_axis: List[float] = [0.0, 0.0, 1.0]
+
+
+@configclass
+class DepthCfg:
+    camera_type: Optional[str] = None   # None, "Warp" / "Raycast" (heightfield raycast), "Fake"
+    position: List[float] = [0.5, 0.0, 0.03]
+    angle: List[float] = [30.0, 30.0]
+    update_interval: int = 1
+    original: List[int] = [60, 30]
+    resized: List[int] = [56, 28]
+    horizontal_fov: float = 100.0
+    buffer_len: int = 2
+    encoder: str = "cnn"
+    near_clip: float = 0.0
+    far_clip: float = 2.0
+    dis_noise: float = 0.0
+    scale: float = 1.0
+    invert: bool = True
+
+
+@configclass
 class LeggedRobotCfg:
     seed: int = 1
     env: EnvCfg = EnvCfg()
@@ -199,6 +238,8 @@ class LeggedRobotCfg:
     normalization: NormalizationCfg = NormalizationCfg()
     noise: NoiseCfg = NoiseCfg()
     sim: SimCfg = SimCfg()
+    raycaster: RaycasterCfg = RaycasterCfg()
+    depth: DepthCfg = DepthCfg()
 
 
 # ---------------------------------------------------------------------------

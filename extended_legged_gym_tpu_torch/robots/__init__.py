@@ -5,10 +5,10 @@ from ..envs.legged_robot import LeggedRobot
 from ..utils.task_registry import task_registry
 from . import anymal_c, anymal_c_traj
 
-# evaluation only: the rough config's terrain-curriculum promotion is not
-# ported, so its env refuses the training config
 task_registry.register("anymal_c_rough", LeggedRobot, anymal_c.anymal_c_rough_cfg,
                        anymal_c.anymal_c_rough_ppo_cfg)
+task_registry.register("anymal_c_rough_raycast", LeggedRobot, anymal_c.anymal_c_rough_raycast_cfg,
+                       lambda: anymal_c.anymal_c_rough_ppo_cfg("rough_raycast_anymal_c"))
 task_registry.register("anymal_c_flat", LeggedRobot, anymal_c.anymal_c_flat_cfg,
                        lambda: anymal_c.anymal_c_ppo_cfg("flat_anymal_c"))
 task_registry.register("anymal_c_traj_grad_sampling", anymal_c_traj.AnymalCTrajGradSampling,

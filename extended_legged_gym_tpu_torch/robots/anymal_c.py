@@ -1,5 +1,5 @@
-"""ANYmal-C task configs (port of the rough and flat configs of
-``robots/anymal_c.py``).
+"""ANYmal-C task configs (port of the rough, ray-observation rough and flat
+configs of ``robots/anymal_c.py``).
 
 The robot model is read in place from the JAX package's committed JSON."""
 from __future__ import annotations
@@ -87,6 +87,22 @@ def anymal_c_flat_cfg() -> LeggedRobotCfg:
     return cfg
 
 
+def anymal_c_rough_raycast_cfg() -> LeggedRobotCfg:
+    """The perceptive rough task: the 235-dim rough observation plus 32
+    forward cone rays (60 degrees, 10 m, mounted 0.5 m ahead of the base) as
+    normalized inverse distances, 267 in all."""
+    cfg = anymal_c_rough_cfg()
+    cfg.raycaster.enable_raycast = True
+    cfg.raycaster.attach_to_obs = True
+    cfg.raycaster.ray_pattern = "cone"
+    cfg.raycaster.num_rays = 32
+    cfg.raycaster.ray_angle = 60.0
+    cfg.raycaster.max_distance = 10.0
+    cfg.raycaster.offset_pos = [0.5, 0.0, 0.0]
+    cfg.env.num_observations = 235 + 32
+    return cfg
+
+
 def anymal_c_ppo_cfg(experiment: str = "flat_anymal_c") -> LeggedRobotCfgPPO:
     """Flat-task PPO settings: the [128, 64, 32] actor and critic."""
     train = LeggedRobotCfgPPO()
@@ -99,7 +115,8 @@ def anymal_c_ppo_cfg(experiment: str = "flat_anymal_c") -> LeggedRobotCfgPPO:
 
 def anymal_c_rough_ppo_cfg(experiment: str = "rough_anymal_c") -> LeggedRobotCfgPPO:
     """Rough-terrain policy settings: the reference-size [512, 256, 128] actor
-    and critic."""
+    and critic (the base defaults; the flat task's [128, 64, 32] must not
+    leak here)."""
     train = LeggedRobotCfgPPO()
     train.runner.experiment_name = experiment
     train.runner.max_iterations = 1500

@@ -1,18 +1,19 @@
 """Rough-terrain policy evaluation with falls by terrain type and level (port
 of ``scripts/eval_rough.py``).
 
-Two evaluations of a committed PPO checkpoint on the ``anymal_c_rough``
-curriculum grid, with levels frozen at spawn (``freeze_terrain_levels``), no
-noise, randomization or pushes, and a constant forward command: all spawn
-levels, then levels <= 2.  Each steps the fleet ``warmup`` control steps and
-then records ``steps`` more: achieved speed over command, upright mean, falls
-(terminations that are not timeouts) by terrain type and level, and the spawn
-composition.  The JSON has the JAX script's shape and keys, plus the card.
+Two evaluations of a PPO checkpoint of a rough task (``anymal_c_rough``, or
+the ray-observation ``anymal_c_rough_raycast``) on its curriculum grid, with
+levels frozen at spawn (``freeze_terrain_levels``), no noise, randomization
+or pushes, and a constant forward command: all spawn levels, then levels
+<= 2.  Each steps the fleet ``warmup`` control steps and then records
+``steps`` more: achieved speed over command, upright mean, falls
+(terminations that are not timeouts) by terrain type and level, and the
+spawn composition.  The JSON has the JAX script's shape and keys, plus the card.
 
 Usage, from the repository root (on a CUDA card; ``--device cpu`` runs the
 plain physics on the CPU):
 
-  python -m extended_legged_gym_tpu_torch.scripts.eval_rough \\
+  python -m extended_legged_gym_tpu_torch.scripts.eval_rough [--task anymal_c_rough] \\
       [--ckpt logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl] \\
       [--envs 32] [--steps 500] [--warmup 100] [--cmd 0.7] [--seed 0] [--out FILE]
 """
@@ -20,15 +21,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
+from .. import robots  # noqa: F401  (populates the registry)
 from ..envs.legged_robot import LeggedRobot
 from ..models.networks import ActorCritic, inference_policy, load_jax_checkpoint
-from ..robots.anymal_c import anymal_c_rough_cfg, anymal_c_rough_ppo_cfg
+from ..robots.anymal_c import anymal_c_rough_ppo_cfg
 from ..utils.device import resolve_device
+from ..utils.task_registry import task_registry
+from .eval_policy import card_name
 
 CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
 
@@ -57,11 +60,11 @@ def col_type_names(num_cols: int, proportions) -> list:
     return names
 
 
-def eval_cfg(envs: int, max_init_level=None):
-    """The rough cfg under the evaluation protocol: the training curriculum
+def eval_cfg(envs: int, max_init_level=None, task="anymal_c_rough"):
+    """The task's cfg under the evaluation protocol: the training curriculum
     grid with levels frozen at spawn, no noise, randomization or pushes, no
     command resampling."""
-    cfg = anymal_c_rough_cfg()
+    cfg, _ = task_registry.get_cfgs(task)
     cfg.env.num_envs = envs
     cfg.noise.add_noise = False
     cfg.domain_rand.randomize_friction = False
@@ -86,9 +89,10 @@ def load_policy(ckpt: str, num_obs: int, num_actions: int, device):
 
 
 @torch.no_grad()
-def run_eval(ckpt, envs, steps, warmup, cmd_mps, max_init_level=None, seed=0, device="cuda"):
+def run_eval(ckpt, envs, steps, warmup, cmd_mps, max_init_level=None, seed=0, device="cuda",
+             task="anymal_c_rough"):
     device = resolve_device(device)
-    cfg = eval_cfg(envs, max_init_level)
+    cfg = eval_cfg(envs, max_init_level, task)
     env = LeggedRobot(cfg, device=device)
     policy = load_policy(ckpt, env.num_obs, env.num_actions, device)
 
@@ -134,6 +138,7 @@ def run_eval(ckpt, envs, steps, warmup, cmd_mps, max_init_level=None, seed=0, de
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--task", default="anymal_c_rough")
     ap.add_argument("--ckpt", default=CKPT)
     ap.add_argument("--envs", type=int, default=32)
     ap.add_argument("--steps", type=int, default=500)
@@ -144,17 +149,12 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    kw = dict(seed=args.seed, device=args.device)
+    kw = dict(seed=args.seed, device=args.device, task=args.task)
     full = run_eval(args.ckpt, args.envs, args.steps, args.warmup, args.cmd, **kw)
     easy = run_eval(args.ckpt, args.envs, args.steps, args.warmup, args.cmd, max_init_level=2, **kw)
-    if torch.device(args.device).type == "cuda":
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              timeout=60).stdout.strip()
-    else:
-        card = "cpu"
+    card = card_name(args.device)
     out = {
-        "task": "anymal_c_rough", "checkpoint": args.ckpt, "command_mps": args.cmd,
+        "task": args.task, "checkpoint": args.ckpt, "command_mps": args.cmd,
         "seed": args.seed, "card": card,
         "eval_full_difficulty": full,
         "eval_level_le2": easy,

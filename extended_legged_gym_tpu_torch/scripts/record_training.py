@@ -1,17 +1,24 @@
-"""Write a training artifact (``TRAIN_torch_rNN.json``): the evaluation of a
-run's final checkpoint under the evaluation protocol
-(:func:`scripts.eval_policy.evaluate`: 16 envs, 100 + 500 steps, 0.7 m/s)
-beside what the run's ``metrics.jsonl`` says about the training: iterations,
-the last logged episode statistics, the first iteration's KL, learning rate
-and action std, the iteration the reward stage advanced, non-finite skips,
-wall time and seconds per iteration split into collection and update, with
-the card.
+"""Write a training artifact (``TRAIN_torch_rNN.json``,
+``TRAIN_ROUGH_torch_rNN.json``): the evaluation of a run's final checkpoint
+under the evaluation protocol beside what the run's ``metrics.jsonl`` says
+about the training.  A flat task is evaluated by
+:func:`scripts.eval_policy.evaluate` (16 envs, 100 + 500 steps, 0.7 m/s); a
+rough task by :func:`scripts.eval_rough.run_eval` twice, as
+``TRAIN_ROUGH_r5.json`` is (32 envs, 100 + 500 steps, 0.7 m/s, all spawn
+levels and levels <= 2).  The training side: iterations, the last logged
+episode statistics, the first iteration's KL, learning rate and action std,
+the iteration the reward stage advanced, non-finite skips, wall time and
+seconds per iteration split into collection and update, on a generated
+terrain the final mean terrain level, with the card.  ``--reference`` names
+the JAX package's artifact of the same recipe, whose outcome is copied beside
+the port's.
 
 Usage, from the directory that holds ``logs/`` (on a CUDA card):
 
   python -m extended_legged_gym_tpu_torch.scripts.record_training \\
       --run logs/flat_anymal_c_torch/<run> [--run <resumed run> ...] \\
-      [--task anymal_c_flat] [--seed 2] [--out TRAIN_torch_r01.json]
+      [--task anymal_c_flat] [--seed 2] [--reference TRAIN_r5.json] \\
+      [--note TEXT] [--out TRAIN_torch_r01.json]
 
 Several ``--run`` are the segments of one training resumed with
 ``--resume``, in order; the last one's ``model_final.pkl`` is evaluated.
@@ -22,7 +29,8 @@ import argparse
 import json
 import os
 
-from .eval_policy import evaluate
+from .eval_policy import card_name, evaluate
+from .eval_rough import run_eval
 
 
 def read_metrics(runs):
@@ -47,12 +55,14 @@ def training_summary(runs, num_envs: int, seed: int) -> dict:
         start += len(seg)
     steady = rows[1:] if len(rows) > 1 else rows
     staged = [r["step"] for r in rows if r["reward_stage"] >= 1]
+    levels = ({"final_terrain_level_mean": rows[-1]["terrain_level"]}
+              if "terrain_level" in rows[-1] else {})
     return {
         "runs": list(runs), "segments": len(runs), "num_envs": num_envs, "seed": seed,
         "iterations": int(rows[-1]["step"]),
         "final_tracking_lin_vel_rew": last["episode/rew_tracking_lin_vel"],
         "final_mean_episode_length": last["mean_episode_length"],
-        "final_mean_reward": last["mean_reward"],
+        "final_mean_reward": last["mean_reward"], **levels,
         "final_reward_stage": rows[-1]["reward_stage"],
         "final_learning_rate": rows[-1]["learning_rate"],
         "final_action_std": rows[-1]["action_std"],
@@ -69,6 +79,24 @@ def training_summary(runs, num_envs: int, seed: int) -> dict:
     }
 
 
+def reference_outcome(path: str) -> dict:
+    """The outcome of the JAX package's artifact at ``path``: its evaluation
+    (one block, or the rough artifact's two) and its training's final numbers."""
+    with open(path) as f:
+        ref = json.load(f)
+    keys = ("achieved_over_command", "upright_mean", "base_height_mean", "falls")
+    out = {"source": os.path.basename(path), "checkpoint": ref.get("checkpoint")}
+    for block in ("eval_full_difficulty", "eval_level_le2"):
+        if block in ref:
+            out[block] = {k: ref[block][k] for k in keys if k in ref[block]}
+    out.update({k: ref[k] for k in keys if k in ref})
+    out["training"] = {k: v for k, v in ref.get("training", {}).items()
+                       if k in ("iterations", "seed", "num_envs", "final_terrain_level_mean",
+                                "final_tracking_lin_vel_rew", "final_mean_episode_length",
+                                "nonfinite_skips")}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--run", action="append", required=True)
@@ -77,11 +105,28 @@ def main(argv=None):
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--cmd", type=float, default=0.7)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reference", default=None)
+    ap.add_argument("--note", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    out = evaluate(args.task, os.path.join(args.run[-1], "model_final.pkl"), args.cmd, envs=16,
-                   steps=500, warmup=100, device=args.device)
+    from ..utils.task_registry import task_registry
+
+    ckpt = os.path.join(args.run[-1], "model_final.pkl")
+    env_cfg, _ = task_registry.get_cfgs(args.task)
+    if env_cfg.terrain.mesh_type in ("heightfield", "trimesh"):
+        kw = dict(task=args.task, device=args.device)
+        out = {"task": args.task, "checkpoint": ckpt, "command_mps": args.cmd,
+               "eval_full_difficulty": run_eval(ckpt, 32, 500, 100, args.cmd, **kw),
+               "eval_level_le2": run_eval(ckpt, 32, 500, 100, args.cmd, max_init_level=2, **kw),
+               "card": card_name(args.device)}
+    else:
+        out = evaluate(args.task, ckpt, args.cmd, envs=16, steps=500, warmup=100,
+                       device=args.device)
     out["training"] = training_summary(args.run, args.num_envs, args.seed)
+    if args.reference:
+        out["reference"] = reference_outcome(args.reference)
+    if args.note:
+        out["note"] = args.note
     print(json.dumps(out))
     if args.out:
         with open(args.out, "w") as f:

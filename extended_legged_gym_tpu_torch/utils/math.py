@@ -1,6 +1,6 @@
 """Quaternion, rotation and spline math (port of ``utils/math.py``).
 
-Only the subset the flat sampling-MPC path uses.  Quaternions are **xyzw**
+Only the subset the ported slices use.  Quaternions are **xyzw**
 (scalar last), as in the JAX package.  Every function broadcasts over leading
 batch dimensions.  The spline matrices are host numpy, as there.
 """
@@ -67,6 +67,19 @@ def yaw_quat(q: torch.Tensor) -> torch.Tensor:
     norm = torch.sqrt(qz * qz + qw * qw).clamp(min=1e-9)
     zeros = torch.zeros_like(qz)
     return torch.stack([zeros, zeros, qz / norm, qw / norm], dim=-1)
+
+
+def ypr_to_quat(yaw: torch.Tensor, pitch: torch.Tensor, roll: torch.Tensor) -> torch.Tensor:
+    """Yaw-pitch-roll (ZYX intrinsic) to quaternion."""
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], dim=-1)
 
 
 def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

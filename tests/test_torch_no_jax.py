@@ -1,10 +1,11 @@
 """The port must run where JAX is not installed: every module of
 extended_legged_gym_tpu_torch (the rough-terrain modules, the PPO runner, the
-task registry and the train and eval scripts among them), and chip_smoke.py,
-import with jax, jaxlib, flax, optax and the JAX package blocked, and the
-committed warm-start, rough-terrain and flat-training checkpoints (whose
-optimizer states pickle optax objects) load, the last into the port's
-runner."""
+task registry, the perception modules and the train and eval scripts among
+them), and chip_smoke.py, import with jax, jaxlib, flax, optax and the JAX
+package blocked, and the committed warm-start, rough-terrain, flat-training
+and ray-observation checkpoints (whose optimizer states pickle optax objects)
+load, the flat one into the port's runner and the ray one into a policy that
+acts on the ray task's 267-dim observation."""
 import os
 import subprocess
 import sys
@@ -17,6 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
 ROUGH_CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
 FLAT_CKPT = "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl"
+RAY_CKPT = "logs/rough_raycast_anymal_c/Aug21_13-41-24_r5_rayc/model_final.pkl"
 
 SCRIPT = textwrap.dedent(f"""
     import importlib, importlib.abc, pkgutil, sys
@@ -42,7 +44,8 @@ SCRIPT = textwrap.dedent(f"""
     from extended_legged_gym_tpu_torch.scripts.eval_rough import load_policy
     for m in ("terrain.generator", "robots.anymal_c", "scripts.eval_rough", "rl.ppo",
               "rl.runner", "utils.task_registry", "utils.metrics", "scripts.train",
-              "scripts.eval_policy", "scripts.record_training"):
+              "scripts.eval_policy", "scripts.record_training", "perception.patterns",
+              "perception.raycast", "perception.depth_camera", "scripts.eval_raycast"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -52,10 +55,11 @@ SCRIPT = textwrap.dedent(f"""
     assert runner.load({FLAT_CKPT!r})["iteration"] == 2000
     import torch
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
+    ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules; actor", tuple(sd["actor.0.weight"].shape),
-          "rough actions", tuple(rough.shape))
+          "rough actions", tuple(rough.shape), "ray actions", tuple(ray.shape))
 """)
 
 
@@ -64,8 +68,9 @@ def test_port_imports_and_loads_checkpoint_without_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "actor (128, 48)" in proc.stdout and "rough actions (1, 12)" in proc.stdout
+    assert "ray actions (1, 12)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 27
+    assert n >= 32
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -142,7 +142,7 @@ def test_fall_resets_on_spawn_origins(envs):
 
 
 @pytest.mark.parametrize("change, match", [
-    (lambda c: setattr(c.terrain, "freeze_terrain_levels", False), "terrain-curriculum promotion"),
+    (lambda c: setattr(c.terrain, "mesh_type", "confined"), "terrain.mesh_type"),
     (lambda c: setattr(c.commands, "curriculum", True), "commands.curriculum"),
     (lambda c: setattr(c.rewards.scales, "termination", -1.0), "rewards.scales.termination"),
     (lambda c: setattr(c.env, "num_privileged_obs", 48), "env.num_privileged_obs"),
