@@ -14,14 +14,16 @@ Phases (each prints its seconds; the run fails rather than overrun):
    shared memory printed: one control step from seeded near-standing states
    with random actions at every batch the MPC path launches it with (8 x 128,
    8 x 97, 8 x 3 and 8 envs; 128, 97 and 3 at E=1), at 2048 and at 4096 (the
-   training fleet), then 25 control steps of drift at 8 x 97, and two
+   training fleet), at 64 (the flat estimator evidence) and 256 (the
+   distillation fleet), then 25 control steps of drift at 8 x 97, and two
    launches on the same inputs at 1024 and at 4096, which must agree bit for
    bit;
 4. B2 against its plain version on the anymal_c_rough curriculum grid
    (900 x 900 heightfield): near-standing states on the spawn origins, one
-   control step at 32 envs (the rough evaluation) and 4096 (the rough
-   config's fleet), 25 control steps of drift at 32, two launches bit for
-   bit at 4096; B2 and plain timed at both batches;
+   control step at 32 envs (the rough evaluation), 128 (the estimator and
+   its closed loop) and 4096 (the rough config's fleet), 25 control steps of
+   drift at 32, two launches bit for bit at 4096; B2 and plain timed at
+   each batch;
 5. MPC path: ANYmal-C flat sampling MPC (RobotTrajGradSampling.mpc_step at
    the committed config, 8 envs, 0.7 m/s command, warm-started from the
    committed checkpoint); B1's launch count is read from this run;
@@ -60,14 +62,29 @@ Phases (each prints its seconds; the run fails rather than overrun):
 11. depth camera: one heightfield render at 4096 envs at the terrain
    estimator's setup (48 x 24 rays resized to 32 x 16), finite and in
    [0, 1] (to float32 rounding of the resize's weights), and its time;
-12. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+12. estimator path: TerrainEstimatorRunner.learn on the ray task under the
+   closed loop's protocol (scripts/estimator_closed_loop.build_env: 128
+   envs, levels <= 2) with the committed ray policy driving, EST_ITERS
+   iterations; B2's launches must be EST_ITERS x 24 (B1's 0), the loss
+   finite and the parameters changed; a save and a load into a fresh runner
+   must give equal predictions; the render's time at 128 envs and the
+   iteration's; then the committed JAX estimator in an EST_CL_STEPS-step
+   closed-loop segment with the ray tail swapped (B2 exactly EST_CL_STEPS):
+   finite predictions, robots upright;
+13. distillation path: DistillationRunner at the DISTILL_NATIVE_r5 recipe
+   (scripts/evidence_artifacts.distill_runner: anymal_c_flat, 256 envs, the
+   committed flat teacher) for DISTILL_ITERS iterations; B1's launches must
+   be DISTILL_ITERS x 24 (B2's 0), the loss finite, the student's parameters
+   changed and the teacher's outputs and parameters unchanged; the
+   iteration's time;
+14. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-13. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+15. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-14. the kernel line (JSON) and the result line.  B1's entry counts its
-   launches on the MPC path and the flat training path, B2's on the rough
-   path, the ray path and the rough training path; both carry their times
-   at the training fleet's 4096.
+16. the kernel line (JSON) and the result line.  B1's entry counts its
+   launches on the MPC path, the flat training path and the distillation
+   path, B2's on the rough path, the ray path, the rough training path and
+   the estimator path; both carry their times at the training fleet's 4096.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -86,6 +103,8 @@ CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.
 ROUGH_CKPT = os.path.join(ROOT, "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl")
 FLAT_CKPT = os.path.join(ROOT, "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl")
 RAY_CKPT = os.path.join(ROOT, "logs/rough_raycast_anymal_c/Aug21_13-41-24_r5_rayc/model_final.pkl")
+JAX_ESTIMATOR = os.path.join(ROOT,
+                             "logs/terrain_estimator/anymal_c_rough_raycast/estimator_final.pkl")
 CMD = 0.7
 
 # kernel against plain, one control step (tests/test_physics_kernel.py:66-84):
@@ -96,10 +115,12 @@ ONE_STEP_ATOL = dict(base_pos=1e-4, base_quat=1e-4, joint_pos=5e-4, base_lin_vel
 # the main path's batches at E=8: sampling rollouts (8 x 128), fd polish
 # (8 x 97), line search (8 x 3), the main env step (8); the solve cell's at
 # E=1 (128, 97, 3); the rollout cell's 2048 and the training fleet's 4096
-# (three waves of 3 blocks of 4 envs per SM)
-CHECK_B = (1024, 776, 24, 8, 128, 97, 3, 2048, 4096)
-# B2: the rough evaluation's fleet and the rough config's training fleet
-ROUGH_B = (32, 4096)
+# (three waves of 3 blocks of 4 envs per SM); the flat estimator evidence's
+# 64 and the distillation fleet's 256
+CHECK_B = (1024, 776, 24, 8, 128, 97, 3, 2048, 4096, 64, 256)
+# B2: the rough evaluation's fleet, the estimator's and the rough config's
+# training fleet
+ROUGH_B = (32, 128, 4096)
 ROUGH_STEPS = 20
 # after 25 control steps (100 substeps) the stiction/contact dynamics amplify
 # rounding differences (FMA contraction, summation order); the bounds are ~10x
@@ -119,6 +140,11 @@ RAY_CMD = 0.5
 # the depth render may leave [0, 1] by float32 rounding of the resize's
 # normalized weights (as jax.image.resize does)
 DEPTH_SLACK = 1e-6
+# estimator path: the closed loop's fleet, iterations of 24 steps, and the
+# closed-loop segment with the JAX estimator
+EST_ENVS, EST_ITERS, EST_CL_STEPS = 128, 2, 20
+# distillation path: the DISTILL_NATIVE_r5 fleet and iterations of 24 steps
+DISTILL_ENVS, DISTILL_ITERS = 256, 3
 
 
 def log(msg):
@@ -387,6 +413,131 @@ def ray_path(dev):
     return launches
 
 
+def flat_params(params):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in params]).clone()
+
+
+def estimator_path(dev):
+    """The terrain estimator trained on the ray task with the ray policy
+    driving, its checkpoint round trip, the render and iteration times, and
+    the committed JAX estimator in a closed-loop segment.  Returns B2's
+    launches in the training and the segment."""
+    import tempfile
+
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.rl.terrain_estimator_runner import TerrainEstimatorRunner
+    from extended_legged_gym_tpu_torch.scripts import bench_mpc
+    from extended_legged_gym_tpu_torch.scripts.estimator_closed_loop import build_env, rollout
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import load_policy
+
+    t0 = time.perf_counter()
+    env = build_env(EST_ENVS, 2, dev)
+    policy = load_policy(RAY_CKPT, env.num_obs, env.num_actions, dev)
+    te = TerrainEstimatorRunner(env, seed=0, policy=policy)
+    before = flat_params(te.network.parameters())
+    torch.cuda.synchronize()
+    pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+    last = te.learn(EST_ITERS, log_interval=1)
+    torch.cuda.synchronize()
+    b2, b1 = pk.DecimatedEnvStep.rough_launches, pk.DecimatedEnvStep.launches
+    after = flat_params(te.network.parameters())
+    want = EST_ITERS * te.num_steps_per_env
+    log(f"estimator path: {EST_ITERS} iterations, {env.num_envs} envs, {te.raycaster.num_rays} "
+        f"rays, frames {te.camera.H1} x {te.camera.W1}: B2 "
+        f"launches={b2} (want {want}) B1 launches={b1}; loss {last['loss']:.5g}; iteration "
+        f"{last['iter_time']:.4f} s = collection {last['collection_s']:.4f} s + update "
+        f"{last['update_s']:.4f} s (the last)")
+    if b2 != want or b1:
+        fail(f"the estimator path launched B2 {b2} times (want {want}) and B1 {b1}")
+    if not math.isfinite(last["loss"]) or not torch.isfinite(after).all():
+        fail("non-finite loss or parameters on the estimator path")
+    if torch.equal(before, after):
+        fail("the estimator path left the parameters unchanged")
+    with torch.no_grad():
+        state = env.reset_all(seed=0)
+        pos, quat = state.phys.base_pos, state.phys.base_quat
+        frame, proprio = te.camera.render(pos, quat), te._proprio(state)
+        with tempfile.TemporaryDirectory() as root:
+            path = os.path.join(root, "estimator_final.pkl")
+            te.save(path)
+            fresh = TerrainEstimatorRunner(env, seed=1, policy=policy)
+            fresh.load(path)
+        a = te.get_estimator()(frame, proprio, te.carry0)[0]
+        b = fresh.get_estimator()(frame, proprio, fresh.carry0)[0]
+        render_ms = bench_mpc.cuda_ms(lambda: te.camera.render(pos, quat), reps=10, warmup=2)
+    log(f"estimator save/load round trip: predictions equal {torch.equal(a, b)}; depth render at "
+        f"{env.num_envs} envs: {render_ms:.4f} ms (CUDA events)")
+    if not torch.equal(a, b):
+        fail("the loaded estimator predicts other distances than the saved one")
+
+    jte = TerrainEstimatorRunner(env, seed=0, policy=policy)
+    jte.load(JAX_ESTIMATOR)
+    torch.cuda.synchronize()
+    pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+    res = rollout(env, jte, policy, True, warmup=0, steps=EST_CL_STEPS, cmd_mps=RAY_CMD, seed=7)
+    torch.cuda.synchronize()
+    seg, b1 = pk.DecimatedEnvStep.rough_launches, pk.DecimatedEnvStep.launches
+    log(f"closed-loop segment with the JAX estimator ({EST_CL_STEPS} steps, ray tail swapped): "
+        f"B2 launches={seg} B1 launches={b1}; RMSE {res['rmse']:.4f} m, near-3 m "
+        f"{res['near_rmse']:.4f} m, tracking {res['vx'] / RAY_CMD:.4f}, upright_mean "
+        f"{res['upright']:.4f}, resets {res['resets']:g}")
+    if seg != EST_CL_STEPS or b1:
+        fail(f"the closed-loop segment launched B2 {seg} times (want {EST_CL_STEPS}) and B1 {b1}")
+    if not all(math.isfinite(res[k]) for k in ("rmse", "mae", "near_rmse", "vx")):
+        fail("non-finite predictions in the closed-loop segment")
+    if not res["upright"] < -0.9:
+        fail(f"closed-loop robots did not stay upright (upright_mean {res['upright']:.3f})")
+    phase_done("estimator path", t0)
+    return b2 + seg
+
+
+def distill_path(dev):
+    """DISTILL_ITERS iterations of the distillation recipe at its fleet.
+    Returns B1's launches."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.scripts.evidence_artifacts import distill_runner
+
+    t0 = time.perf_counter()
+    runner = distill_runner(CKPT, DISTILL_ENVS, DISTILL_ITERS, dev)
+    obs = runner.env_state.obs.clone()
+    with torch.no_grad():
+        teacher_out = runner.teacher_policy(obs).clone()
+    student = flat_params(runner.alg.optimizer.params)
+    teacher_slot = flat_params(runner.network.teacher.parameters())
+    torch.cuda.synchronize()
+    pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+    last = runner.learn(DISTILL_ITERS, log_interval=1)
+    torch.cuda.synchronize()
+    b1, b2 = pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.rough_launches
+    want = DISTILL_ITERS * runner.num_steps_per_env
+    student_after = flat_params(runner.alg.optimizer.params)
+    with torch.no_grad():
+        teacher_same = torch.equal(runner.teacher_policy(obs), teacher_out) and torch.equal(
+            flat_params(runner.network.teacher.parameters()), teacher_slot)
+    log(f"distillation path: {DISTILL_ITERS} iterations, {runner.env.num_envs} envs, student "
+        f"(256, 256, 128): B1 launches={b1} (want {want}) B2 launches={b2}; behavior loss "
+        f"{last['behavior_loss']:.5g}; {runner.alg.num_updates} optimizer steps, learning rate "
+        f"{runner.alg.learning_rate:.4g}; teacher unchanged {teacher_same}; iteration "
+        f"{last['collection_s'] + last['update_s']:.4f} s = collection {last['collection_s']:.4f} "
+        f"s + update {last['update_s']:.4f} s (the last)")
+    if b1 != want or b2:
+        fail(f"the distillation path launched B1 {b1} times (want {want}) and B2 {b2}")
+    if not math.isfinite(last["behavior_loss"]) or not torch.isfinite(student_after).all():
+        fail("non-finite loss or student parameters on the distillation path")
+    if torch.equal(student, student_after):
+        fail("the distillation path left the student's parameters unchanged")
+    if not teacher_same:
+        fail("the distillation path changed the teacher")
+    phase_done("distillation path", t0)
+    return b1
+
+
 def main():
     import torch
 
@@ -593,7 +744,13 @@ def main():
     # ---------------- 10-11. ray path and depth camera ----------------
     ray_launches = ray_path(dev)
 
-    # ---------------- 12. flat evaluation ----------------
+    # ---------------- 12. estimator path ----------------
+    est_launches = estimator_path(dev)
+
+    # ---------------- 13. distillation path ----------------
+    distill_launches = distill_path(dev)
+
+    # ---------------- 14. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -606,7 +763,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 13. timing ----------------
+    # ---------------- 15. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -616,15 +773,16 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 14. result ----------------
+    # ---------------- 16. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
     for name, launches, err, ks in (
-            ("flat_decimated_physics_step", flat_launches + train_launches, flat_err,
-             flat_stats[4096]),
-            ("rough_decimated_physics_step", rough_launches + ray_launches + rough_train_launches,
-             rough_err, rough_stats[4096]),
+            ("flat_decimated_physics_step", flat_launches + train_launches + distill_launches,
+             flat_err, flat_stats[4096]),
+            ("rough_decimated_physics_step",
+             rough_launches + ray_launches + rough_train_launches + est_launches, rough_err,
+             rough_stats[4096]),
             ("flat_physics_substep_v_route", v_launches["flat_v"], v_err["flat_v"],
              v_stats["flat_v"][V_FLAT_B]),
             ("rough_physics_substep_v_route", v_launches["rough_v"], v_err["rough_v"],

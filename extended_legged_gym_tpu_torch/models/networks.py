@@ -1,4 +1,5 @@
-"""Policy/value networks (port of ``ActorCritic``, the Gaussian helpers and
+"""Policy/value networks (port of ``ActorCritic``, ``MLP``, the Gaussian
+helpers, the recurrent cells with ``rnn_carry`` and ``Memory``, and
 ``RunningNorm`` of ``models/networks.py``) and the bridge to the JAX
 package's ``.pkl`` checkpoints in both directions.
 
@@ -6,7 +7,15 @@ The JAX networks are flax ``Dense`` stacks: a ``kernel [in, out]`` drawn from
 ``lecun_normal`` (a normal truncated at two standard deviations, scaled to
 variance 1 / fan_in) and a zero bias; the port draws its ``nn.Linear``
 weights the same way (PyTorch's default is a kaiming-uniform weight and a
-uniform bias), so PPO starts from the same distribution of networks.
+uniform bias), so PPO starts from the same distribution of networks.  The
+recurrent cells are flax's ``GRUCell`` and ``OptimizedLSTMCell`` written out
+gate by gate: ``lecun_normal`` input kernels, orthogonal recurrent kernels,
+zero biases, and flax's split of the biases between the input and the
+hidden kernels, which ``torch.nn.GRUCell`` cannot hold.
+
+Modules whose children carry flax's names (``Dense_0``, ``GRUCell_0``, ``ir``,
+...) map to and from a flax parameter tree with :func:`flax_tree` and
+:func:`load_flax_tree`, whatever they nest.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _ACTIVATIONS = {"elu": nn.ELU}
@@ -39,15 +49,141 @@ def _mlp(in_dim: int, hidden: Sequence[int], out_dim: int, activation: str) -> n
     return nn.Sequential(*layers)
 
 
-def lecun_normal_(linear: nn.Linear, generator: Optional[torch.Generator] = None):
-    """flax's ``Dense`` initialisation: weight from a normal truncated at two
-    standard deviations with variance 1 / fan_in after truncation, zero bias."""
-    fan_in = linear.weight.shape[1]
+def lecun_normal_(layer: nn.Module, generator: Optional[torch.Generator] = None):
+    """flax's ``Dense`` and ``Conv`` initialisation: weight from a normal
+    truncated at two standard deviations with variance 1 / fan_in after
+    truncation (fan_in: the inputs of one output unit), zero bias."""
+    fan_in = layer.weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     with torch.no_grad():
-        nn.init.trunc_normal_(linear.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        linear.weight.mul_(std)
-        linear.bias.zero_()
+        nn.init.trunc_normal_(layer.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        layer.weight.mul_(std)
+        if layer.bias is not None:
+            layer.bias.zero_()
+
+
+def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """flax's activation of ``name`` (``get_activation``)."""
+    return {"elu": F.elu, "relu": F.relu, "selu": F.selu, "crelu": F.relu,
+            "lrelu": F.leaky_relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}[name]
+
+
+class MLP(nn.Module):
+    """flax's ``MLP``: ``Dense_0 .. Dense_n`` with the activation between
+    them, none after the last."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int], out_dim: int,
+                 activation: str = "elu", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = activation_fn(activation)
+        dims = [in_dim, *hidden_dims, out_dim]
+        self.n = len(dims) - 1
+        for k in range(self.n):
+            layer = nn.Linear(dims[k], dims[k + 1])
+            lecun_normal_(layer, generator)
+            self.add_module(f"Dense_{k}", layer)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for k in range(self.n):
+            x = self._modules[f"Dense_{k}"](x)
+            if k < self.n - 1:
+                x = self.act(x)
+        return x
+
+
+def _gate(in_dim: int, hidden: int, bias: bool, recurrent: bool,
+          generator: Optional[torch.Generator]) -> nn.Linear:
+    layer = nn.Linear(in_dim, hidden, bias=bias)
+    if recurrent:
+        with torch.no_grad():
+            nn.init.orthogonal_(layer.weight, generator=generator)
+    else:
+        lecun_normal_(layer, generator)
+    if bias:
+        with torch.no_grad():
+            layer.bias.zero_()
+    return layer
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell``: ``r = sigmoid(ir x + hr h)``, ``z = sigmoid(iz x
+    + hz h)``, ``n = tanh(in x + r * (hn h))``, ``h' = (1 - z) n + z h``; the
+    input gates and ``hn`` have a bias, ``hr`` and ``hz`` none.  Called as
+    flax calls it: ``(carry, x) -> (carry, out)``, the carry ``h``."""
+
+    def __init__(self, in_dim: int, hidden: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden = hidden
+        for k in ("ir", "iz", "in"):
+            self.add_module(k, _gate(in_dim, hidden, True, False, generator))
+        for k in ("hr", "hz", "hn"):
+            self.add_module(k, _gate(hidden, hidden, k == "hn", True, generator))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor):
+        g = self._modules
+        r = torch.sigmoid(g["ir"](x) + g["hr"](h))
+        z = torch.sigmoid(g["iz"](x) + g["hz"](h))
+        n = torch.tanh(g["in"](x) + r * g["hn"](h))
+        h = (1.0 - z) * n + z * h
+        return h, h
+
+
+class LSTMCell(nn.Module):
+    """flax's ``nn.OptimizedLSTMCell``: gates ``i, f, g, o`` each the sum of
+    an input kernel (no bias) and a hidden kernel (with bias);
+    ``c' = f c + i g``, ``h' = o tanh(c')``.  The carry is ``(c, h)``, flax's
+    order (``torch.nn.LSTMCell`` takes ``(h, c)``)."""
+
+    def __init__(self, in_dim: int, hidden: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden = hidden
+        for k in "ifgo":
+            self.add_module("i" + k, _gate(in_dim, hidden, False, False, generator))
+            self.add_module("h" + k, _gate(hidden, hidden, True, True, generator))
+
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor], x: torch.Tensor):
+        c, h = carry
+        g = self._modules
+        i, f, o = (torch.sigmoid(g["h" + k](h) + g["i" + k](x)) for k in "ifo")
+        c = f * c + i * torch.tanh(g["hg"](h) + g["ig"](x))
+        h = o * torch.tanh(c)
+        return (c, h), h
+
+
+def rnn_carry(rnn_type: str, hidden_size: int, batch_dims: Tuple[int, ...], device="cpu"):
+    """Zero carry of a recurrent cell (LSTM: ``(c, h)``; GRU: ``h``)."""
+    shape = tuple(batch_dims) + (hidden_size,)
+    if rnn_type == "lstm":
+        return (torch.zeros(shape, device=device), torch.zeros(shape, device=device))
+    return torch.zeros(shape, device=device)
+
+
+class Memory(nn.Module):
+    """One step of an LSTM or GRU (reference networks/memory.py): ``(x,
+    carry) -> (out, carry)``; the caller carries the state and resets it on
+    dones.  The cell is the child flax names ``OptimizedLSTMCell_0`` or
+    ``GRUCell_0``."""
+
+    def __init__(self, in_dim: int, hidden_size: int = 256, rnn_type: str = "lstm",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_size, self.rnn_type = hidden_size, rnn_type
+        if rnn_type == "lstm":
+            self.cell_name = "OptimizedLSTMCell_0"
+            cell = LSTMCell(in_dim, hidden_size, generator)
+        elif rnn_type == "gru":
+            self.cell_name = "GRUCell_0"
+            cell = GRUCell(in_dim, hidden_size, generator)
+        else:
+            raise ValueError(f"unknown rnn type {rnn_type!r}")
+        self.add_module(self.cell_name, cell)
+
+    def forward(self, x: torch.Tensor, carry):
+        carry, out = self._modules[self.cell_name](carry, x)
+        return out, carry
+
+    def initialize_carry(self, batch_dims: Tuple[int, ...], device="cpu"):
+        return rnn_carry(self.rnn_type, self.hidden_size, batch_dims, device)
 
 
 class ActorCritic(nn.Module):
@@ -232,6 +368,55 @@ def params_to_jax(net: ActorCritic) -> Dict:
 
     return {"params": {"actor": dense(net.actor), "critic": dense(net.critic),
                        "log_std": net.log_std.detach().cpu().numpy().copy()}}
+
+
+def _has_params(module: nn.Module) -> bool:
+    return next(module.parameters(), None) is not None
+
+
+def flax_tree(module: nn.Module) -> Dict:
+    """``module``'s parameters as the flax tree of numpy arrays its children's
+    names spell: an ``nn.Linear`` is ``{"kernel" [in, out], "bias"}``, a
+    convolution ``{"kernel" [*window, in, out], "bias"}``, a parameter held
+    by a module is a leaf of its name."""
+    if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        w = module.weight.detach().cpu()
+        kernel = w.T if isinstance(module, nn.Linear) else w.permute(*range(2, w.dim()), 1, 0)
+        out = {"kernel": kernel.numpy().copy()}
+        if module.bias is not None:
+            out["bias"] = module.bias.detach().cpu().numpy().copy()
+        return out
+    out = {n: p.detach().cpu().numpy().copy() for n, p in module.named_parameters(recurse=False)}
+    out.update({n: flax_tree(c) for n, c in module.named_children() if _has_params(c)})
+    return out
+
+
+def load_flax_tree(module: nn.Module, tree: Dict) -> nn.Module:
+    """Copy the flax tree ``tree`` (the inverse of :func:`flax_tree`) into
+    ``module``'s parameters; every parameter must be given, and nothing else."""
+    state: Dict[str, torch.Tensor] = {}
+
+    def walk(mod: nn.Module, sub: Dict, prefix: str):
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+            k = torch.as_tensor(np.asarray(sub["kernel"]).copy())
+            nd = k.dim()
+            state[prefix + "weight"] = k.T if nd == 2 else k.permute(nd - 1, nd - 2, *range(nd - 2))
+            if "bias" in sub:
+                state[prefix + "bias"] = torch.as_tensor(np.asarray(sub["bias"]).copy())
+            return
+        children = {n: c for n, c in mod.named_children() if _has_params(c)}
+        leaves = [n for n, _ in mod.named_parameters(recurse=False)]
+        if set(sub) != set(children) | set(leaves):
+            raise KeyError(f"flax tree at {prefix or '/'} has {sorted(sub)}, the module "
+                           f"{sorted(set(children) | set(leaves))}")
+        for name in leaves:
+            state[prefix + name] = torch.as_tensor(np.asarray(sub[name]).copy())
+        for name, child in children.items():
+            walk(child, sub[name], f"{prefix}{name}.")
+
+    walk(module, tree, "")
+    module.load_state_dict({k: v.contiguous() for k, v in state.items()}, strict=True)
+    return module
 
 
 def read_checkpoint(path: str) -> dict:

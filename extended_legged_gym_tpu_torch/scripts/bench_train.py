@@ -1,19 +1,28 @@
-"""Where a PPO training iteration goes, on one card: a registered task at
-its training recipe from scratch, by default ``anymal_c_flat`` at TRAIN_r5's
-(4096 envs, 24 steps per env, 5 x 4 minibatches, seed 2); ``--task
-anymal_c_rough --seed 1`` is TRAIN_ROUGH_r5's (the terrain curriculum, the
-[512, 256, 128] networks).  After ``warmup`` iterations: the seconds per
-iteration split into collection and update (host clock around each part,
-ending in a synchronize) over ``iters`` iterations, and, from a
-torch.profiler trace of ``reps`` iterations, the wall ms per iteration
-(profiler on), the device-busy ms per iteration, the device's idle share and
-the physics kernel's (B1 on flat ground, B2 on a heightfield) ms and
-launches per iteration.
+"""Where a training iteration goes, on one card.  ``--path``:
+
+* ``ppo`` (default): a registered task's PPO at its training recipe from
+  scratch, by default ``anymal_c_flat`` at TRAIN_r5's (4096 envs, 24 steps
+  per env, 5 x 4 minibatches, seed 2); ``--task anymal_c_rough --seed 1`` is
+  TRAIN_ROUGH_r5's (the terrain curriculum, the [512, 256, 128] networks);
+* ``estimator_ray``: the terrain estimator on the ray task under the closed
+  loop's protocol (128 envs, levels <= 2), the committed ray policy driving;
+* ``estimator_flat``: the terrain estimator at the ESTIMATOR_r4 recipe (flat,
+  64 envs, random actions);
+* ``distill``: distillation at the DISTILL_NATIVE_r5 recipe (flat, 256 envs,
+  the committed teacher).
+
+After ``warmup`` iterations: the seconds per iteration split into collection
+and update (host clock around each part, ending in a synchronize) over
+``iters`` iterations, and, from a torch.profiler trace of ``reps``
+iterations, the wall ms per iteration (profiler on), the device-busy ms per
+iteration, the device's idle share, the physics kernel's (B1 on flat
+ground, B2 on a heightfield) ms and launches per iteration, and the device
+kernels that take the most time.
 
 Usage, from the repository root:
 
-  python -m extended_legged_gym_tpu_torch.scripts.bench_train [--task anymal_c_flat] \\
-      [--seed 2] [--iters 10] [--reps 2]
+  python -m extended_legged_gym_tpu_torch.scripts.bench_train [--path ppo] \\
+      [--task anymal_c_flat] [--seed 2] [--iters 10] [--reps 2]
 
 Prints one JSON object.
 """
@@ -29,47 +38,128 @@ from extended_legged_gym_tpu_torch.scripts.bench_mpc import device_split
 from extended_legged_gym_tpu_torch.scripts.eval_policy import card_name
 from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
 
+TEACHER = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
 
-def train_profile(warmup=3, iters=10, reps=2, device="cuda", task="anymal_c_flat", seed=2):
+
+def top_device_kernels(prof, reps: int, n: int = 8):
+    """The ``n`` device kernels with the most self time: ``[name, ms per
+    iteration, launches per iteration]``."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        rows.append([ev.key[:80], us / 1e3 / reps, ev.count / reps])
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
+def profile_iterations(iterate, warmup: int, iters: int, reps: int) -> dict:
+    """``iterate()`` runs one iteration and returns its ``{"collection_s",
+    "update_s"}``."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = get_args(argv=["--seed", str(seed), "--num_envs", "4096", "--device", device])
+    for _ in range(warmup):
+        iterate()
+    col = upd = 0.0
+    for _ in range(iters):
+        times = iterate()
+        col += times["collection_s"]
+        upd += times["update_s"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            iterate()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    split = device_split(prof, reps)
+    return dict(collection_s=col / iters, update_s=upd / iters,
+                s_per_iteration=(col + upd) / iters,
+                profiled_wall_ms=wall_ms, device_busy_ms=split["device_busy_ms"],
+                device_idle_share=1.0 - split["device_busy_ms"] / wall_ms,
+                kernel_ms=split["physics_kernel_ms"], kernel_launches=split["physics_launches"],
+                top_device_kernels=top_device_kernels(prof, reps))
+
+
+def ppo_iteration(task: str, seed: int, device):
+    args = get_args(argv=["--seed", str(seed), "--num_envs", "4096", "--device", str(device)])
     env, _ = task_registry.make_env(task, args)
     _, train_cfg = task_registry.get_cfgs(task)
     train_cfg.seed = seed
     runner = OnPolicyRunner(env, train_cfg)
-    for _ in range(warmup):
+
+    def iterate():
         runner.train_iteration()
-    col = upd = 0.0
-    for _ in range(iters):
+        return runner.last_times
+
+    return iterate, dict(task=task, seed=seed, envs=env.num_envs,
+                         steps_per_env=runner.num_steps_per_env)
+
+
+def estimator_iteration(path: str, device):
+    from extended_legged_gym_tpu_torch.rl.terrain_estimator_runner import TerrainEstimatorRunner
+    from extended_legged_gym_tpu_torch.scripts.estimator_closed_loop import build_env
+    from extended_legged_gym_tpu_torch.scripts.eval_raycast import RAY_CKPT
+    from extended_legged_gym_tpu_torch.scripts.eval_rough import load_policy
+    from extended_legged_gym_tpu_torch.scripts.evidence_artifacts import estimator_env
+
+    if path == "estimator_ray":
+        env = build_env(128, 2, device)
+        policy = load_policy(RAY_CKPT, env.num_obs, env.num_actions, device)
+    else:
+        env, policy = estimator_env(64, device), None
+    runner = TerrainEstimatorRunner(env, seed=0, policy=policy)
+    state = [env.reset_all()]
+
+    def iterate():
+        state[0], _ = runner.collect_and_update(state[0])
+        return runner.last_times
+
+    task = "anymal_c_rough_raycast" if path == "estimator_ray" else "anymal_c_flat"
+    return iterate, dict(task=task, envs=env.num_envs, steps_per_env=runner.num_steps_per_env)
+
+
+def distill_iteration(device):
+    from extended_legged_gym_tpu_torch.scripts.evidence_artifacts import distill_runner
+
+    runner = distill_runner(TEACHER, 256, 1500, device)
+
+    def iterate():
         runner.train_iteration()
-        col += runner.last_times["collection_s"]
-        upd += runner.last_times["update_s"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            runner.train_iteration()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    split = device_split(prof, reps)
-    return dict(task=task, seed=seed, envs=env.num_envs, steps_per_env=runner.num_steps_per_env,
-                collection_s=col / iters, update_s=upd / iters,
-                s_per_iteration=(col + upd) / iters,
-                env_steps_per_s=env.num_envs * runner.num_steps_per_env * iters / (col + upd),
-                profiled_wall_ms=wall_ms, device_busy_ms=split["device_busy_ms"],
-                device_idle_share=1.0 - split["device_busy_ms"] / wall_ms,
-                kernel_ms=split["physics_kernel_ms"], kernel_launches=split["physics_launches"])
+        return runner.last_times
+
+    return iterate, dict(task="anymal_c_flat", envs=runner.env.num_envs,
+                         steps_per_env=runner.num_steps_per_env)
+
+
+def train_profile(warmup=3, iters=10, reps=2, device="cuda", task="anymal_c_flat", seed=2,
+                  path="ppo"):
+    if path == "ppo":
+        iterate, info = ppo_iteration(task, seed, device)
+    elif path == "distill":
+        iterate, info = distill_iteration(device)
+    else:
+        iterate, info = estimator_iteration(path, device)
+    out = profile_iterations(iterate, warmup, iters, reps)
+    return dict(path=path, **info, **out,
+                env_steps_per_s=info["envs"] * info["steps_per_env"] / out["s_per_iteration"])
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", default="ppo",
+                    choices=["ppo", "estimator_ray", "estimator_flat", "distill"])
     ap.add_argument("--task", default="anymal_c_flat")
     ap.add_argument("--seed", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args()
-    out = train_profile(args.warmup, args.iters, args.reps, task=args.task, seed=args.seed)
+    out = train_profile(args.warmup, args.iters, args.reps, task=args.task, seed=args.seed,
+                        path=args.path)
     print(json.dumps({"card": card_name("cuda"), **out}))
 
 

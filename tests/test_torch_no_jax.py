@@ -1,11 +1,15 @@
 """The port must run where JAX is not installed: every module of
 extended_legged_gym_tpu_torch (the rough-terrain modules, the PPO runner, the
-task registry, the perception modules and the train and eval scripts among
-them), and chip_smoke.py, import with jax, jaxlib, flax, optax and the JAX
-package blocked, and the committed warm-start, rough-terrain, flat-training
-and ray-observation checkpoints (whose optimizer states pickle optax objects)
-load, the flat one into the port's runner and the ray one into a policy that
-acts on the ray task's 267-dim observation."""
+task registry, the perception modules, the terrain estimator and
+distillation modules and the train, eval, estimator and evidence scripts
+among them), and chip_smoke.py, import with jax, jaxlib, flax, optax and the
+JAX package blocked, and the committed warm-start, rough-terrain,
+flat-training and ray-observation checkpoints (whose optimizer states pickle
+optax objects) load, the flat one into the port's runner and the ray one into
+a policy that acts on the ray task's 267-dim observation; the committed JAX
+terrain estimator loads into the port's estimator and predicts the ray task's
+32 distances, and the warm-start checkpoint's actor loads into a
+student-teacher pair as its teacher."""
 import os
 import subprocess
 import sys
@@ -19,6 +23,7 @@ CKPT = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
 ROUGH_CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
 FLAT_CKPT = "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl"
 RAY_CKPT = "logs/rough_raycast_anymal_c/Aug21_13-41-24_r5_rayc/model_final.pkl"
+ESTIMATOR = "logs/terrain_estimator/anymal_c_rough_raycast/estimator_final.pkl"
 
 SCRIPT = textwrap.dedent(f"""
     import importlib, importlib.abc, pkgutil, sys
@@ -45,7 +50,11 @@ SCRIPT = textwrap.dedent(f"""
     for m in ("terrain.generator", "robots.anymal_c", "scripts.eval_rough", "rl.ppo",
               "rl.runner", "utils.task_registry", "utils.metrics", "scripts.train",
               "scripts.eval_policy", "scripts.record_training", "perception.patterns",
-              "perception.raycast", "perception.depth_camera", "scripts.eval_raycast"):
+              "perception.raycast", "perception.depth_camera", "scripts.eval_raycast",
+              "models.depth_backbone", "models.terrain_estimator", "models.student_teacher",
+              "rl.terrain_estimator_runner", "rl.distillation", "rl.distillation_runner",
+              "scripts.terrain_est_train", "scripts.terrain_est_play",
+              "scripts.estimator_closed_loop", "scripts.evidence_artifacts"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -56,10 +65,22 @@ SCRIPT = textwrap.dedent(f"""
     import torch
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
+    from extended_legged_gym_tpu_torch.models.networks import read_checkpoint
+    from extended_legged_gym_tpu_torch.models.student_teacher import (
+        StudentTeacher, load_teacher_from_actor_critic)
+    from extended_legged_gym_tpu_torch.models.terrain_estimator import (
+        TerrainEstimator, estimator_params_from_jax)
+    est = estimator_params_from_jax(TerrainEstimator(32, 9, (16, 32)),
+                                    read_checkpoint({ESTIMATOR!r})["params"])
+    pred, _ = est(torch.zeros(2, 16, 32), torch.zeros(2, 9), est.initialize_carry((2,)))
+    st = StudentTeacher(48, 48, 12, teacher_hidden_dims=(128, 64, 32))
+    st = load_teacher_from_actor_critic(st, read_checkpoint({CKPT!r})["params"])
+    assert torch.equal(st.evaluate_teacher(torch.ones(3, 48)), net.act_inference(torch.ones(3, 48)))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules; actor", tuple(sd["actor.0.weight"].shape),
-          "rough actions", tuple(rough.shape), "ray actions", tuple(ray.shape))
+          "rough actions", tuple(rough.shape), "ray actions", tuple(ray.shape),
+          "estimated rays", tuple(pred.shape))
 """)
 
 
@@ -68,9 +89,9 @@ def test_port_imports_and_loads_checkpoint_without_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "actor (128, 48)" in proc.stdout and "rough actions (1, 12)" in proc.stdout
-    assert "ray actions (1, 12)" in proc.stdout
+    assert "ray actions (1, 12)" in proc.stdout and "estimated rays (2, 32)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 32
+    assert n >= 62
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -13,7 +13,18 @@ envs, seed 1, 2450 iterations in one segment, terrain curriculum) and its two
 rough evaluation blocks; RAYCAST_torch_r01.json: the committed ray policy
 under ESTIMATOR_CL_r5's true-ray protocol.  Both must carry their recipe or
 protocol, the card line, finite values and the JAX artifact's numbers beside
-their own; the rough checkpoint must act as the JAX network (1e-5)."""
+their own; the rough checkpoint must act as the JAX network (1e-5).
+
+ESTIMATOR_CL_torch_r01.json / _r02.json: the terrain estimator's closed loop
+(scripts/estimator_closed_loop.py, ESTIMATOR_CL_r5's protocol) with the JAX
+package's committed estimator and with the port's own trained 300 iterations
+(its committed checkpoint must predict as the JAX network does with its
+parameters, 1e-5); ESTIMATOR_torch_r01.json: the ESTIMATOR_r4 recipe;
+DISTILL_NATIVE_torch_r01.json: the DISTILL_NATIVE_r5 recipe.  Each carries its
+recipe, the card line, finite values and the JAX artifact's numbers, and
+meets the fault criteria set before the runs: a closed-loop RMSE of at most
+1.5 m with the JAX estimator, a student of at least 0.8 of command with at
+most 5 falls."""
 import json
 import os
 import pickle
@@ -159,3 +170,93 @@ def test_ray_artifact_records_the_protocol():
     for k in ("tracking_true_rays", "falls_true_rays", "n_envs", "n_steps",
               "max_init_terrain_level", "command_mps"):
         assert ref[k] == cl[k], k
+
+
+def _closed_loop(name):
+    art = _load(name)
+    assert art["policy"] == _load("ESTIMATOR_CL_r5.json")["policy"]
+    assert (art["n_envs"], art["warmup"], art["n_steps"], art["max_init_terrain_level"],
+            art["command_mps"], art["seed"]) == (128, 100, 400, 2, 0.5, 7)
+    assert art["camera"] == "48 x 24 -> 32 x 16"
+    assert "H100" in art["card"] and art["card"].endswith(" W")
+    assert all(np.isfinite(x) for x in _numbers(art))
+    for k in ("prediction_rmse_m", "prediction_mae_m", "prediction_rmse_m_near3m"):
+        assert 0.0 < art[k], k
+    assert 0 <= art["falls_true_rays"] <= 128 and 0 <= art["falls_estimated_rays"] <= 128
+    cl = _load("ESTIMATOR_CL_r5.json")
+    for k, v in art["reference"].items():
+        if k != "source":
+            assert v == cl[k], k
+    return art
+
+
+def test_closed_loop_with_the_jax_estimator():
+    art = _closed_loop("ESTIMATOR_CL_torch_r01.json")
+    assert art["estimator"] == art["reference"]["estimator"]
+    assert "training" not in art
+    # the fault criterion set before the run
+    assert art["prediction_rmse_m"] <= 1.5
+    # eval A is RAYCAST_torch_r01's protocol on the same policy and seed
+    assert art["tracking_true_rays"] == _load("RAYCAST_torch_r01.json")["tracking_true_rays"]
+
+
+def test_closed_loop_with_the_port_s_estimator():
+    art = _closed_loop("ESTIMATOR_CL_torch_r02.json")
+    tr = art["training"]
+    assert (tr["iterations"], tr["num_envs"], tr["num_steps_per_env"]) == (300, 128, 24)
+    assert tr["curve"][-1][0] == 300 and tr["loss_final"] < tr["loss_first"]
+    assert "not record" in art["note"]
+    assert art["estimator"] != art["reference"]["estimator"]
+    assert os.path.exists(os.path.join(ROOT, art["estimator"]))
+
+
+def test_port_estimator_checkpoint_acts_as_the_jax_network():
+    from extended_legged_gym_tpu.models.terrain_estimator import TerrainEstimator as JEstimator
+    from extended_legged_gym_tpu_torch.models.terrain_estimator import (TerrainEstimator,
+                                                                        estimator_params_from_jax)
+
+    with open(os.path.join(ROOT, _load("ESTIMATOR_CL_torch_r02.json")["estimator"]), "rb") as f:
+        params = pickle.load(f)["params"]
+    r = np.random.default_rng(3)
+    depth = r.random((8, 16, 32)).astype(np.float32)
+    proprio = r.standard_normal((8, 9)).astype(np.float32)
+    carry = r.standard_normal((8, 128)).astype(np.float32)
+    jnet = JEstimator(num_raycast=32, proprio_dim=9)
+    want, jc = jnet.apply(params, jnp.asarray(depth), jnp.asarray(proprio), jnp.asarray(carry))
+    net = estimator_params_from_jax(TerrainEstimator(32, 9, (16, 32)), params)
+    got, c = net(torch.as_tensor(depth), torch.as_tensor(proprio), torch.as_tensor(carry))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(c.detach().numpy(), np.asarray(jc), atol=1e-5)
+
+
+def test_estimator_evidence_records_the_recipe():
+    art = _load("ESTIMATOR_torch_r01.json")
+    assert (art["iterations"], art["num_envs"]) == (300, 64)
+    assert art["recipe"]["camera"] == "48 x 24 -> 32 x 16"
+    assert art["recipe"]["rays"] == "spherical 8 x 4, 5 m"
+    assert len(art["curve"]) == 20 and art["curve"][-1][0] == 300
+    assert art["loss_final"] < art["loss_first"]
+    assert "H100" in art["card"] and art["card"].endswith(" W")
+    assert all(np.isfinite(x) for x in _numbers(art))
+    r4 = _load("ESTIMATOR_r4.json")
+    for k in ("iterations", "num_envs", "loss_first", "loss_final"):
+        assert art["reference"][k] == r4[k], k
+
+
+def test_distillation_evidence_meets_its_fault_criteria():
+    art = _load("DISTILL_NATIVE_torch_r01.json")
+    r5 = _load("DISTILL_NATIVE_r5.json")
+    assert art["teacher"] == r5["teacher"]
+    assert (art["iterations"], art["num_envs"]) == (1500, 256)
+    assert art["recipe"]["student_hidden_dims"] == [256, 256, 128]
+    assert art["recipe"]["optimizer_steps_per_iteration"] == 4
+    assert len(art["curve"]) == 20 and art["curve"][-1][0] == 1500
+    ev = art["student_eval"]
+    assert (ev["command_mps"], ev["n_envs"], ev["n_steps"], ev["warmup"]) == (0.5, 256, 300, 100)
+    # the fault criteria set before the run
+    assert ev["achieved_over_command"] >= 0.8 and ev["falls"] <= 5
+    assert "H100" in art["card"] and art["card"].endswith(" W")
+    assert all(np.isfinite(x) for x in _numbers(art))
+    for k in ("teacher", "iterations", "num_envs", "behavior_loss_first", "behavior_loss_final",
+              "student_eval"):
+        assert art["reference"][k] == r5[k], k
