@@ -77,14 +77,37 @@ Phases (each prints its seconds; the run fails rather than overrun):
    be DISTILL_ITERS x 24 (B2's 0), the loss finite, the student's parameters
    changed and the teacher's outputs and parameters unchanged; the
    iteration's time;
-14. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+14. ElSpider path: B1 with the ElSpider Air hexapod's tables (19 bodies, 18
+   joints, 46 spheres, 6 feet) against its plain version run in float64 at
+   ELSPIDER_B envs (16 and the fleet's 4096), its 25-step drift at 16
+   reported three ways (drift_report), two launches bit for bit at 4096;
+   ELSPIDER_ITERS iterations of elspider_air_flat training at the fleet (B1
+   exactly ELSPIDER_ITERS x 24, the other routes 0) with the save/load round
+   trip; the committed JAX checkpoint evaluated (16 envs, 50 + 100 steps,
+   0.5 m/s: B1 exactly 150, upright);
+15. SEA path: the anymal_c_flat_sea env's torques-in B1 step (EnvStep)
+   against plain at the fleet with the actuator network's torques;
+   SEA_ITERS training iterations (EnvStep exactly SEA_ITERS x 24 x 4, the
+   fused step 0); the committed JAX SEA checkpoint evaluated (16 envs, 50 +
+   100 steps, 0.7 m/s, upright);
+16. RL extensions on anymal_c_flat at the fleet: a recurrent policy with a
+   symmetry_cfg must be refused; EXT_ITERS iterations of the recurrent
+   policy (LSTM of 512) with RND, then of the MLP policy with RND and the
+   left-right symmetry loss (B1 exactly EXT_ITERS x 24 each, finite losses
+   and RND losses, policy and predictor changed); the recurrent inference
+   policy must change its action with its carry, give the first action
+   again after a reset, and round-trip through a checkpoint;
+17. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-15. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+18. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-16. the kernel line (JSON) and the result line.  B1's entry counts its
-   launches on the MPC path, the flat training path and the distillation
-   path, B2's on the rough path, the ray path, the rough training path and
-   the estimator path; both carry their times at the training fleet's 4096.
+19. the kernel line (JSON) and the result line.  B1's entry counts its
+   launches on the MPC path, the flat training path, the distillation path
+   and the RL-extension paths; B1's entry on the hexapod's tables its
+   launches on the ElSpider path; the SEA route's its launches on the SEA
+   training path; B2's entry on the rough path, the ray path, the rough
+   training path and the estimator path; each carries its times at the
+   training fleet's 4096.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -145,6 +168,13 @@ DEPTH_SLACK = 1e-6
 EST_ENVS, EST_ITERS, EST_CL_STEPS = 128, 2, 20
 # distillation path: the DISTILL_NATIVE_r5 fleet and iterations of 24 steps
 DISTILL_ENVS, DISTILL_ITERS = 256, 3
+# ElSpider Air: B1 on its tables at the evaluation's 16 and the fleet's 4096,
+# training iterations at the fleet; the SEA task's and the RL extensions'
+# training iterations at the fleet
+ELSPIDER_B, ELSPIDER_ITERS = (16, 4096), 3
+SEA_ITERS, EXT_ITERS = 3, 2
+ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
+SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
 
 def log(msg):
@@ -162,11 +192,13 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def compare_one_step(name, step, B, states, kernel_stats):
+def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
     """One control step of ``step``'s kernel against its plain version from
-    ``states`` = (phys, env_params, actions); fails beyond ONE_STEP_ATOL.
-    Times both and records ms, plain ms and the bound in ``kernel_stats[B]``.
-    Returns the largest difference over the checked fields."""
+    ``states`` = (phys, env_params, actions), the plain version computed in
+    ``plain_dtype`` (default float32); fails beyond ONE_STEP_ATOL.  Times
+    both (the plain version in float32) and records ms, plain ms and the
+    bound in ``kernel_stats[B]``.  Returns the largest difference over the
+    checked fields."""
     import torch
 
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
@@ -174,7 +206,14 @@ def compare_one_step(name, step, B, states, kernel_stats):
 
     st, ep, act = states
     sk, tk, rk = step.launch(st, act, ep)
-    sp_, tp, rp = step.plain(st, act, ep)
+    sp_, tp, rp = step.plain(st, act, ep, dtype=plain_dtype)
+    if plain_dtype is not None:
+        sp32 = step.plain(st, act, ep)[0]
+        log(f"{name} B={B}: kernel - float32 plain: " + " ".join(
+            f"{k}={(getattr(sk, k) - getattr(sp32, k)).abs().max().item():.3g}"
+            for k in ("joint_pos", "joint_vel")) + "; float32 plain - float64 plain: " + " ".join(
+            f"{k}={(getattr(sp32, k) - getattr(sp_, k)).abs().max().item():.3g}"
+            for k in ("joint_pos", "joint_vel")) + f"; below: kernel - {plain_dtype} plain")
     torch.cuda.synchronize()
     errs = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item()
             for k in ONE_STEP_ATOL if k != "foot_pos"}
@@ -221,6 +260,34 @@ def bit_identical(name, step, B, states):
         fail(f"{name}: two launches on the same inputs differ in {bad}")
 
 
+def drift_report(name, step, B, states):
+    """drift_check's 25 control steps, with the plain version run both in
+    float32 and in float64: prints the kernel's drift from each and the
+    float32 plain's own drift from float64, and fails only on non-finite
+    states.  For a model whose trajectories from these states are chaotic
+    (the float32 plain leaves float64 by more than DRIFT_ATOL), a drift
+    bound cannot tell a kernel fault from rounding."""
+    import torch
+
+    st, ep, act = states
+    act = 0.2 * act
+    sk, s32, s64 = st, st, st
+    for _ in range(25):
+        sk = step.launch(sk, act, ep)[0]
+        s32 = step.plain(s32, act, ep)[0]
+        s64 = step.plain(s64, act, ep, dtype=torch.float64)[0]
+    torch.cuda.synchronize()
+    for label, a, b in (("kernel - float32 plain", sk, s32), ("kernel - float64 plain", sk, s64),
+                        ("float32 plain - float64 plain", s32, s64)):
+        log(f"{name} drift after 25 control steps B={B}, {label}: " + " ".join(
+            f"{k}={(getattr(a, k) - getattr(b, k)).abs().max().item():.3g}" for k in DRIFT_ATOL))
+    log(f"{name}: joint velocities at the {step.model.dof_vel_limits.min():g} rad/s limit after "
+        f"25 steps: {int((s64.joint_vel.abs() > 0.99 * float(step.model.dof_vel_limits.min())).sum())}"
+        f" (float64 plain)")
+    if not all(torch.isfinite(getattr(sk, k)).all() for k in DRIFT_ATOL):
+        fail(f"{name}: non-finite state after 25 control steps")
+
+
 def v_control(cfg):
     """V control with gains the explicit substep keeps stable (as in
     tests/test_torch_env.py)."""
@@ -250,19 +317,35 @@ def drift_check(name, step, B, states):
             fail(f"{name} 25-step drift of {k} is {drift[k]:.3g} > {tol}")
 
 
+def launch_counts():
+    """The launch counters of the fused control step (B1, B2) and of the
+    torques-in route (EnvStep: V control and the actuator network)."""
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+
+    return {"B1": pk.DecimatedEnvStep.launches, "B2": pk.DecimatedEnvStep.rough_launches,
+            "B1 torques-in": pk.EnvStep.launches, "B2 torques-in": pk.EnvStep.rough_launches}
+
+
+def zero_launch_counts():
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+
+    pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+    pk.EnvStep.launches = pk.EnvStep.rough_launches = 0
+
+
 def training_path(dev, task, seed, iters):
     """``iters`` iterations of PPO on ``task`` at its training recipe (4096
     envs, from scratch) through the task registry and OnPolicyRunner.learn,
     then a save/load round trip.  On a generated terrain the curriculum must
     have moved some env's level, within [0, num_rows).  Returns the launches
-    of the physics kernel of the task's terrain (B1 flat, B2 rough) in the
-    learn call; the other kernel must not launch."""
+    of the physics route of the task (B1 flat, B2 rough; their torques-in
+    route, one launch per substep, with the actuator network) in the learn
+    call; no other route may launch."""
     import tempfile
 
     import torch
 
     from extended_legged_gym_tpu_torch import robots  # noqa: F401
-    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
 
@@ -270,7 +353,7 @@ def training_path(dev, task, seed, iters):
                           "--max_iterations", str(iters), "--device", str(dev)])
     env, _ = task_registry.make_env(args.task, args)
     rough = env.custom_origins
-    ours, other = ("B2", "B1") if rough else ("B1", "B2")
+    ours = ("B2" if rough else "B1") + (" torques-in" if env.substep is not None else "")
     with tempfile.TemporaryDirectory() as root:
         runner, train_cfg = task_registry.make_alg_runner(env, args.task, args, log_root=root)
         net = runner.network
@@ -281,22 +364,24 @@ def training_path(dev, task, seed, iters):
         before = torch.cat([p.detach().reshape(-1) for p in net.parameters()]).clone()
         levels0 = runner.env_state.terrain_levels.clone()
         torch.cuda.synchronize()
-        pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
+        zero_launch_counts()
         runner.learn(train_cfg.runner.max_iterations, log_interval=1)
         torch.cuda.synchronize()
-        counts = {"B1": pk.DecimatedEnvStep.launches, "B2": pk.DecimatedEnvStep.rough_launches}
+        counts = launch_counts()
         with open(os.path.join(runner.log_dir, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         after = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
-        want = iters * runner.num_steps_per_env
-        log(f"{task} training path: {ours} launches={counts[ours]} (want {want}) {other} "
-            f"launches={counts[other]}; losses " + " ".join(f"{r['loss']:.4g}" for r in rows)
+        want = iters * runner.num_steps_per_env * (
+            env.cfg.control.decimation if env.substep is not None else 1)
+        others = {k: v for k, v in counts.items() if k != ours}
+        log(f"{task} training path: {ours} launches={counts[ours]} (want {want}), others "
+            f"{others}; losses " + " ".join(f"{r['loss']:.4g}" for r in rows)
             + "; nonfinite_skips " + " ".join(f"{r['nonfinite_skips']:g}" for r in rows)
             + f"; learning rate {rows[-1]['learning_rate']:.3g}; reward stage "
             f"{rows[-1]['reward_stage']:g}")
-        if counts[ours] != want or counts[other] != 0:
+        if counts[ours] != want or any(others.values()):
             fail(f"the {task} training path launched {ours} {counts[ours]} times (want {want}) "
-                 f"and {other} {counts[other]} (want 0)")
+                 f"and others {others} (want 0)")
         if not all(math.isfinite(r["loss"]) for r in rows) or not torch.isfinite(after).all():
             fail(f"non-finite loss or parameters on the {task} training path")
         if any(r["nonfinite_skips"] != 0 for r in rows):
@@ -538,6 +623,199 @@ def distill_path(dev):
     return b1
 
 
+def elspider_path(dev, stats):
+    """B1 with the ElSpider Air tables against plain (one control step at
+    ELSPIDER_B, the 25-step drift at 16, two launches bit for bit at 4096;
+    ms, plain ms and bound into ``stats``), ELSPIDER_ITERS iterations of
+    elspider_air_flat training at the fleet (B1 exactly ELSPIDER_ITERS x 24
+    on the hexapod's tables), and a short evaluation of the committed JAX
+    checkpoint.  The plain version runs in float64 here: on the hexapod's
+    light legs its float32 rounding alone moves a joint velocity by about
+    0.045 rad/s in a control step from near-standing states with random
+    actions (at 4096 envs, against float64), most of ONE_STEP_ATOL's 5e-2.
+    The 25-step drift is reported, not bounded (drift_report): from these
+    states some knees chatter against the joint velocity limit and the
+    float32 plain leaves the float64 plain by several rad/s.  Returns the
+    largest difference against plain and B1's launches in the training and
+    the evaluation."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, elspider_step,
+                                                                    near_standing)
+    from extended_legged_gym_tpu_torch.scripts.eval_policy import evaluate
+
+    t0 = time.perf_counter()
+    step = elspider_step(dev)
+    m, h = step.model, STAND_HEIGHT["elspider_air"]
+    log(f"ElSpider B1 (nb={m.nb} nj={m.nj} ng={m.ng} nf={step.nf}) block of {pk.ENVS_PER_BLOCK} "
+        f"envs: {pk.block_shared_bytes(m.nb, m.nj, m.ng, step.nf)} bytes of shared memory")
+    err = max(compare_one_step("ElSpider B1", step, B, near_standing(m, B, B, dev, height=h), stats,
+                               torch.float64) for B in ELSPIDER_B)
+    drift_report("ElSpider B1", step, 16, near_standing(m, 16, 7, dev, height=h))
+    bit_identical("ElSpider B1", step, 4096, near_standing(m, 4096, 3, dev, height=h))
+    phase_done("ElSpider B1 vs plain", t0)
+
+    t0 = time.perf_counter()
+    train = training_path(dev, "elspider_air_flat", 1, ELSPIDER_ITERS)
+    phase_done("ElSpider training path", t0)
+
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    res = evaluate("elspider_air_flat", ELSPIDER_CKPT, envs=16, steps=100, warmup=50, device=dev)
+    ev = launch_counts()["B1"]
+    log(f"ElSpider evaluation of the committed JAX checkpoint (16 envs, 50+100 steps, "
+        f"{res['command_mps']} m/s): achieved/command={res['achieved_over_command']} "
+        f"upright_mean={res['upright_mean']} base_height_mean={res['base_height_mean']} "
+        f"falls={res['falls']}; B1 launches={ev}")
+    if not all(math.isfinite(res[k]) for k in ("achieved_over_command", "upright_mean")):
+        fail("non-finite values in the ElSpider evaluation")
+    if not res["upright_mean"] < -0.9 or ev != 150:
+        fail(f"ElSpider evaluation: upright_mean {res['upright_mean']}, B1 launches {ev} (want 150)")
+    phase_done("ElSpider evaluation", t0)
+    return err, train + ev
+
+
+def sea_path(dev, stats):
+    """The SEA route: the anymal_c_flat_sea env's torques-in B1 step
+    (EnvStep) against plain at the fleet with the actuator network's torques
+    (ms, plain ms and bound into ``stats``), SEA_ITERS training iterations
+    at the fleet (EnvStep exactly SEA_ITERS x 24 x 4, the fused step never),
+    and a short evaluation of the committed JAX SEA checkpoint.  Returns the
+    largest difference against plain and the route's launches."""
+    import torch
+
+    from extended_legged_gym_tpu_torch import robots  # noqa: F401
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import STAND_HEIGHT, near_standing
+    from extended_legged_gym_tpu_torch.scripts.eval_policy import evaluate
+    from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
+
+    t0 = time.perf_counter()
+    cfg, _ = task_registry.get_cfgs("anymal_c_flat_sea")
+    cfg.env.num_envs = FLEET
+    env, _ = task_registry.make_env("anymal_c_flat_sea", env_cfg=cfg, device=dev)
+    if env.substep is None or env.decimated_step is not None or env.actuator_net is None:
+        fail("the SEA env does not run the actuator network on the torques-in route")
+    st, ep, act = near_standing(env.model, FLEET, 9, dev, height=STAND_HEIGHT["anymal_c"])
+    with torch.no_grad():
+        hidden = env.actuator_net.init_hidden((FLEET, env.num_dof))
+        for _ in range(3):                      # a hidden state that has seen some steps
+            tau, hidden = env._compute_torques(act, st, None, hidden)
+    err = compare_one_step("SEA EnvStep", env.substep, FLEET, (st, ep, tau), stats)
+    log(f"SEA torques at the fleet: |max| {tau.abs().max().item():.3g} N m")
+    phase_done("SEA route vs plain", t0)
+
+    t0 = time.perf_counter()
+    launches = training_path(dev, "anymal_c_flat_sea", 2, SEA_ITERS)
+    phase_done("SEA training path", t0)
+
+    t0 = time.perf_counter()
+    res = evaluate("anymal_c_flat_sea", SEA_CKPT, envs=16, steps=100, warmup=50, device=dev)
+    log(f"SEA evaluation of the committed JAX checkpoint (16 envs, 50+100 steps, "
+        f"{res['command_mps']} m/s): achieved/command={res['achieved_over_command']} "
+        f"upright_mean={res['upright_mean']} base_height_mean={res['base_height_mean']} "
+        f"falls={res['falls']}")
+    if not all(math.isfinite(res[k]) for k in ("achieved_over_command", "upright_mean")):
+        fail("non-finite values in the SEA evaluation")
+    if not res["upright_mean"] < -0.9:
+        fail(f"SEA evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
+    phase_done("SEA evaluation", t0)
+    return err, launches
+
+
+def extensions_path(dev):
+    """The RL extensions on anymal_c_flat at the fleet: recurrent PPO (an
+    LSTM of 512 before each MLP) with RND for EXT_ITERS iterations (B1
+    exactly EXT_ITERS x 24), its stateful inference policy and a save/load
+    round trip; the recurrent policy with a symmetry_cfg is refused; then
+    the MLP policy with RND and the left-right symmetry loss for EXT_ITERS
+    iterations (B1 exactly EXT_ITERS x 24).  Returns B1's launches."""
+    import tempfile
+
+    import torch
+
+    from extended_legged_gym_tpu_torch import robots  # noqa: F401
+    from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_symmetry_cfg
+    from extended_legged_gym_tpu_torch.scripts.bench_train import RND_CFG, recurrent_train_cfg
+    from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
+
+    t0 = time.perf_counter()
+    cfg, _ = task_registry.get_cfgs("anymal_c_flat")
+    cfg.env.num_envs, cfg.seed = FLEET, 2
+    env, _ = task_registry.make_env("anymal_c_flat", env_cfg=cfg, device=dev)
+    total = 0
+    refused = False
+    try:
+        tc = recurrent_train_cfg(task_registry.get_cfgs("anymal_c_flat")[1])
+        tc.algorithm.symmetry_cfg = anymal_c_symmetry_cfg()
+        OnPolicyRunner(env, tc)
+    except ValueError as e:
+        refused = "symmetry" in str(e)
+    log(f"recurrent policy with a symmetry_cfg refused: {refused}")
+    if not refused:
+        fail("the runner took symmetry_cfg with a recurrent policy")
+    for name in ("recurrent + RND", "MLP + RND + symmetry"):
+        tc = task_registry.get_cfgs("anymal_c_flat")[1]
+        tc.seed = 2
+        if name.startswith("recurrent"):
+            recurrent_train_cfg(tc)
+        else:
+            tc.algorithm.rnd_cfg = dict(RND_CFG)
+            tc.algorithm.symmetry_cfg = anymal_c_symmetry_cfg()
+        with tempfile.TemporaryDirectory() as root:
+            runner, _ = task_registry.make_alg_runner(env, train_cfg=tc, log_root=root)
+            before = flat_params(runner.network.parameters())
+            rnd_before = flat_params(runner.rnd.predictor.parameters())
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            runner.learn(EXT_ITERS, log_interval=1)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            with open(os.path.join(runner.log_dir, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            want = EXT_ITERS * runner.num_steps_per_env
+            log(f"{name} path: {env.num_envs} envs, policy {tc.runner.policy_class_name} "
+                f"({tc.policy.rnn_type} {tc.policy.rnn_hidden_size} before "
+                f"{tc.policy.actor_hidden_dims})" if runner.recurrent else
+                f"{name} path: {env.num_envs} envs, policy {tc.runner.policy_class_name} "
+                f"{tc.policy.actor_hidden_dims}, symmetry coef {runner.symmetry[2]}")
+            log(f"  launches {counts} (want B1 {want}); losses "
+                + " ".join(f"{r['loss']:.4g}" for r in rows) + "; rnd_loss "
+                + " ".join(f"{r['rnd_loss']:.4g}" for r in rows) + "; nonfinite_skips "
+                + " ".join(f"{r['nonfinite_skips']:g}" for r in rows) + "; iteration "
+                + " ".join(f"{r['collection_s'] + r['update_s']:.3f} s = collection "
+                           f"{r['collection_s']:.3f} + update {r['update_s']:.3f}" for r in rows))
+            if counts["B1"] != want or counts["B2"] or counts["B1 torques-in"]:
+                fail(f"the {name} path launched {counts} (want B1 {want} only)")
+            if not all(math.isfinite(r["loss"]) and math.isfinite(r["rnd_loss"]) for r in rows):
+                fail(f"non-finite loss or RND loss on the {name} path")
+            if any(r["nonfinite_skips"] for r in rows):
+                fail(f"the {name} path skipped updates for non-finite values")
+            if torch.equal(before, flat_params(runner.network.parameters())) or torch.equal(
+                    rnd_before, flat_params(runner.rnd.predictor.parameters())):
+                fail(f"the {name} path left the policy or the RND predictor unchanged")
+            total += counts["B1"]
+            if runner.recurrent:
+                obs = runner.env_state.obs
+                policy = runner.get_inference_policy()
+                a1, a2 = policy(obs), policy(obs)
+                policy.reset(torch.ones(env.num_envs, dtype=torch.bool, device=dev))
+                a3 = policy(obs)
+                path = os.path.join(root, "roundtrip.pkl")
+                runner.save(path)
+                fresh = OnPolicyRunner(env, tc)
+                fresh.load(path)
+                a4 = fresh.get_inference_policy()(obs)
+                log(f"  stateful inference policy: second call differs by "
+                    f"{(a2 - a1).abs().max().item():.3g}, after reset equal {torch.equal(a1, a3)}; "
+                    f"save/load round trip equal {torch.equal(a1, a4)}")
+                if torch.equal(a1, a2) or not torch.equal(a1, a3) or not torch.equal(a1, a4):
+                    fail("the recurrent inference policy does not carry, reset or round-trip")
+    phase_done("RL extensions", t0)
+    return total
+
+
 def main():
     import torch
 
@@ -750,7 +1028,13 @@ def main():
     # ---------------- 13. distillation path ----------------
     distill_launches = distill_path(dev)
 
-    # ---------------- 14. flat evaluation ----------------
+    # ---------------- 14-16. ElSpider, SEA, RL extensions ----------------
+    elspider_stats, sea_stats = {}, {}
+    elspider_err, elspider_launches = elspider_path(dev, elspider_stats)
+    sea_err, sea_launches = sea_path(dev, sea_stats)
+    ext_launches = extensions_path(dev)
+
+    # ---------------- 17. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -763,7 +1047,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 15. timing ----------------
+    # ---------------- 18. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -773,13 +1057,17 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 16. result ----------------
+    # ---------------- 19. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
     for name, launches, err, ks in (
-            ("flat_decimated_physics_step", flat_launches + train_launches + distill_launches,
-             flat_err, flat_stats[4096]),
+            ("flat_decimated_physics_step",
+             flat_launches + train_launches + distill_launches + ext_launches, flat_err,
+             flat_stats[4096]),
+            ("flat_decimated_physics_step_elspider_air", elspider_launches, elspider_err,
+             elspider_stats[4096]),
+            ("flat_physics_substep_sea_route", sea_launches, sea_err, sea_stats[FLEET]),
             ("rough_decimated_physics_step",
              rough_launches + ray_launches + rough_train_launches + est_launches, rough_err,
              rough_stats[4096]),

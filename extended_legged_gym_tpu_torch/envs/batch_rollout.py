@@ -129,8 +129,8 @@ class RobotBatchRollout(LeggedRobot):
         resets, pushes or command resampling."""
         clip_a = self.cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
-        phys, torques, report = self._physics_substeps(rs.phys, actions, env_params,
-                                                       rs.last_dof_vel)
+        phys, torques, report, _ = self._physics_substeps(rs.phys, actions, env_params,
+                                                          rs.last_dof_vel)
         grav = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand_as(phys.base_pos)
         rs = rs.replace(
             phys=phys, actions=actions, torques=torques,

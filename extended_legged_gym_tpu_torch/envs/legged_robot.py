@@ -9,7 +9,12 @@ pure functions do.  Physics runs through the fused decimated step
 B2 on a heightfield), its plain version on the CPU.  Under V control the
 torques depend on the control step's ``last_dof_vel`` and are computed here
 once per substep, each substep one launch of the same kernel
-(``make_env_step`` / ``make_env_step_rough``).
+(``make_env_step`` / ``make_env_step_rough``).  With the actuator network
+(``control.use_actuator_network``) each substep's torques come from the
+ANYdrive LSTM, whose hidden state advances per substep and rides in the
+state (``actuator_hidden``), and each substep is one launch of the same
+torques-in route; the JAX env takes this path off its fused kernel onto the
+ABA engine, which the port's kernel follows.
 
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
@@ -37,6 +42,8 @@ Semantics kept from the JAX env, reference quirks included:
   observation after the height scan; they carry no noise);
 * staged reward scales (``multi_stage_rewards``), selected by the state's
   ``reward_stage``;
+* the actuator network's hidden state is zeroed for the envs that reset,
+  after the step (it is not re-drawn);
 * domain randomization drawn once per env at ``reset_all`` and kept for the
   env's lifetime: friction from 64 buckets in ``friction_range``, the base
   mass delta uniform in ``added_mass_range`` (both reach the kernel through
@@ -70,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.actuator_net import ActuatorNetLSTM
 from ..ops.physics_kernel import make_decimated_env_step, make_env_step, make_env_step_rough
 from ..perception.raycast import RayCaster
 from ..physics.contact import default_contact_params
@@ -119,6 +127,7 @@ class EnvState:
     terrain_levels: Optional[torch.Tensor] = None    # [B] int64
     terrain_types: Optional[torch.Tensor] = None     # [B] int64
     reward_stage: Optional[torch.Tensor] = None      # scalar int64 (staged rewards)
+    actuator_hidden: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # (h, c) [B, nj, L, H]
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -195,6 +204,13 @@ class LeggedRobot:
         self.raycaster = (RayCaster(cfg.raycaster, self.terrain, self.device)
                           if cfg.raycaster.enable_raycast else None)
 
+        # joint soft limits (the dof_pos_limits term)
+        lim = np.asarray(model.dof_pos_limits, np.float32)
+        mid, rng_ = (lim[:, 0] + lim[:, 1]) / 2, lim[:, 1] - lim[:, 0]
+        soft = cfg.rewards.soft_dof_pos_limit
+        self.dof_pos_soft_limits = torch.as_tensor(
+            np.stack([mid - 0.5 * rng_ * soft, mid + 0.5 * rng_ * soft], axis=1), device=self.device)
+
         self._init_env_origins()
 
         rng = cfg.commands.ranges
@@ -206,10 +222,14 @@ class LeggedRobot:
         self._prepare_reward_functions()
         self.noise_scale_vec = torch.as_tensor(self._make_noise_scale_vec(), device=self.device)
 
+        self.actuator_net = (ActuatorNetLSTM.from_json(cfg.control.actuator_net_file, self.device)
+                             if cfg.control.use_actuator_network and cfg.control.actuator_net_file
+                             else None)
         # P and T control: torques and substeps fused in one launch per control
-        # step; V control: one launch per substep with the torques passed in
+        # step; V control and the actuator network: one launch per substep with
+        # the torques passed in
         self.decimated_step = self.substep = None
-        if cfg.control.control_type == "V":
+        if cfg.control.control_type == "V" or self.actuator_net is not None:
             self.substep = (make_env_step(model, self.sim_params, self.terrain.height00,
                                           self.terrain.friction)
                             if self.terrain.is_flat
@@ -396,7 +416,9 @@ class LeggedRobot:
             common_step=torch.zeros((), dtype=torch.int64, device=dev),
             episode_metrics=self.zero_episode_metrics(),
             measured_heights=z(B, self.num_height_points), terrain_levels=levels,
-            terrain_types=types, reward_stage=torch.zeros((), dtype=torch.int64, device=dev))
+            terrain_types=types, reward_stage=torch.zeros((), dtype=torch.int64, device=dev),
+            actuator_hidden=(self.actuator_net.init_hidden((B, self.num_dof))
+                             if self.actuator_net is not None else None))
         state = self._refresh_derived(state)
         return state.replace(obs=self._compute_observations(state))
 
@@ -432,34 +454,45 @@ class LeggedRobot:
         terminations, resets, observations)."""
         clip_a = self.cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
-        phys, torques, report = self._physics_substeps(state.phys, actions, state.env_params,
-                                                       state.last_dof_vel)
-        state = state.replace(phys=phys, actions=actions, torques=torques)
+        phys, torques, report, hidden = self._physics_substeps(
+            state.phys, actions, state.env_params, state.last_dof_vel, state.actuator_hidden)
+        state = state.replace(phys=phys, actions=actions, torques=torques, actuator_hidden=hidden)
         state = self._refresh_derived(state, report)
         return self._post_physics_step(state)
 
     def _physics_substeps(self, phys: PhysState, actions: torch.Tensor,
-                          env_params: EnvPhysParams, last_dof_vel: torch.Tensor):
+                          env_params: EnvPhysParams, last_dof_vel: torch.Tensor,
+                          actuator_hidden=None):
         """Decimation loop (torques recomputed every substep):
-        ``(phys, tau_last, report)``.  P and T control run it fused in one
-        kernel launch on the card; V control launches one substep at a time."""
+        ``(phys, tau_last, report, actuator_hidden)``.  P and T control run it
+        fused in one kernel launch on the card; V control and the actuator
+        network launch one substep at a time, the network's hidden state
+        advancing per substep."""
         if self.substep is None:
-            return self.decimated_step(phys, actions, env_params)
+            return (*self.decimated_step(phys, actions, env_params), actuator_hidden)
         for _ in range(self.cfg.control.decimation):
-            tau = self._compute_torques(actions, phys, last_dof_vel)
+            tau, actuator_hidden = self._compute_torques(actions, phys, last_dof_vel,
+                                                         actuator_hidden)
             phys, report = self.substep(phys, tau, env_params)
-        return phys, tau, report
+        return phys, tau, report, actuator_hidden
 
     def _compute_torques(self, actions: torch.Tensor, phys: PhysState,
-                         last_dof_vel: torch.Tensor) -> torch.Tensor:
-        """V-control torques, clamped to the limits: a P term on the velocity
-        error and a D term on the joint acceleration since the control step
-        began (``last_dof_vel``).  P and T torques are computed inside the
-        fused step."""
+                         last_dof_vel: torch.Tensor, actuator_hidden=None):
+        """Torques clamped to the limits and the actuator network's next
+        hidden state: with the network, its torque for the position error
+        ``scaled + default - q`` and the velocity (the control type is
+        ignored); under V control a P term on the velocity error and a D term
+        on the joint acceleration since the control step began
+        (``last_dof_vel``).  P and T torques are computed inside the fused
+        step."""
         scaled = actions * self.cfg.control.action_scale
-        tau = (self.p_gains_t * (scaled - phys.joint_vel)
-               - self.d_gains_t * (phys.joint_vel - last_dof_vel) / self.cfg.sim.dt)
-        return torch.maximum(torch.minimum(tau, self.torque_limits), -self.torque_limits)
+        if self.actuator_net is not None:
+            x = torch.stack([scaled + self.default_dof_pos - phys.joint_pos, phys.joint_vel], dim=-1)
+            tau, actuator_hidden = self.actuator_net(x, actuator_hidden)
+        else:
+            tau = (self.p_gains_t * (scaled - phys.joint_vel)
+                   - self.d_gains_t * (phys.joint_vel - last_dof_vel) / self.cfg.sim.dt)
+        return torch.maximum(torch.minimum(tau, self.torque_limits), -self.torque_limits), actuator_hidden
 
     def _refresh_derived(self, state: EnvState, report: Optional[StepReport] = None) -> EnvState:
         """Base-frame velocities, gravity projection and foot/contact states."""
@@ -553,6 +586,9 @@ class LeggedRobot:
         commands = self._sample_commands(state.commands, mask)
         fmask = mask.to(torch.float32)
         zero = lambda x: torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
+        hidden = state.actuator_hidden
+        if hidden is not None:
+            hidden = tuple(zero(h) for h in hidden)
         # fold the finished episodes into the accumulators before zeroing
         em = dict(state.episode_metrics)
         em["count"] = em["count"] + fmask.sum()
@@ -561,7 +597,7 @@ class LeggedRobot:
         for k, v in state.episode_sums.items():
             em["rew_" + k] = em["rew_" + k] + (v * fmask).sum() / self.max_episode_length_s
         return state.replace(
-            phys=phys, commands=commands, episode_metrics=em,
+            phys=phys, commands=commands, episode_metrics=em, actuator_hidden=hidden,
             terrain_levels=levels, env_origins=origins,
             episode_return=state.episode_return * (1.0 - fmask),
             episode_length=torch.where(mask, torch.zeros_like(state.episode_length), state.episode_length),
@@ -623,7 +659,8 @@ class LeggedRobot:
                               episode_sums=sums)
         return state, rew
 
-    # --- reward terms the flat sampling-MPC and rough configs scale ---
+    # --- reward terms the flat sampling-MPC, rough, flat and ElSpider configs scale ---
+    speed_min = 0.1
     def _reward_lin_vel_z(self, s, ctx):
         return torch.square(s.base_lin_vel[:, 2])
 
@@ -666,3 +703,37 @@ class LeggedRobot:
     def _reward_tracking_ang_vel(self, s, ctx):
         err = torch.square(s.commands[:, 2] - s.base_ang_vel[:, 2])
         return torch.exp(-err / self.cfg.rewards.tracking_sigma)
+
+    def _reward_dof_pos_limits(self, s, ctx):
+        lo = -(s.phys.joint_pos - self.dof_pos_soft_limits[:, 0]).clamp(max=0.0)
+        hi = (s.phys.joint_pos - self.dof_pos_soft_limits[:, 1]).clamp(min=0.0)
+        return torch.sum(lo + hi, dim=1)
+
+    def _reward_feet_slip(self, s, ctx):
+        vxy2 = torch.sum(torch.square(s.foot_velocities[..., :2]), dim=-1)
+        return torch.sum(ctx["contact_filt"] * vxy2, dim=1)
+
+    def _gait_active(self, s) -> torch.Tensor:
+        """Envs whose command moves them (the gait terms apply only there)."""
+        c = s.commands
+        idx = 3 if self.cfg.commands.heading_command else 2
+        return (torch.linalg.norm(c[:, :2], dim=1) > self.speed_min) | (
+            torch.abs(c[:, idx]) >= self.speed_min / 2)
+
+    def _reward_gait_2_step(self, s, ctx):
+        """Quadruped trot: feet (0, 3) and (1, 2) in phase, the pairs in
+        antiphase."""
+        sync = (self._sync_rew(ctx, 0, 3) + self._sync_rew(ctx, 1, 2)) / 2
+        async_ = (self._async_rew(ctx, 0, 1) + self._async_rew(ctx, 0, 2)
+                  + self._async_rew(ctx, 3, 2) + self._async_rew(ctx, 3, 1)) / 4
+        return (sync + async_) * self._gait_active(s)
+
+    def _sync_rew(self, ctx, f0, f1, max_err=2.0):
+        at, ct = ctx["feet_air_time"], ctx["feet_contact_time"]
+        return (torch.square(at[:, f0] - at[:, f1]).clamp(max=max_err ** 2)
+                + torch.square(ct[:, f0] - ct[:, f1]).clamp(max=max_err ** 2))
+
+    def _async_rew(self, ctx, f0, f1, max_err=2.0):
+        at, ct = ctx["feet_air_time"], ctx["feet_contact_time"]
+        return (torch.square(at[:, f0] - ct[:, f1]).clamp(max=max_err ** 2)
+                + torch.square(ct[:, f0] - at[:, f1]).clamp(max=max_err ** 2))

@@ -3,7 +3,8 @@
 
 Field names and defaults match the JAX package.  Only the groups and fields
 that the ported slices (flat sampling MPC, rough-terrain policy evaluation
-and training, flat PPO training, ray perception) read are here; the env
+and training, flat PPO training, ray perception, the actuator network and
+the RL extensions) read are here; the env
 raises on the settings the port does not implement yet (those fields stay so
 it can).
 """
@@ -86,6 +87,10 @@ class ControlCfg:
     damping: Dict[str, float] = {}
     action_scale: float = 0.5
     decimation: int = 4
+    # the ANYdrive SEA LSTM in place of the PD law (the control type is then
+    # ignored); its weights are a JSON of models/actuator_net.py
+    use_actuator_network: bool = False
+    actuator_net_file: Optional[str] = None
 
 
 @configclass
@@ -132,6 +137,7 @@ class RewardsCfg:
     scales: RewardScalesCfg = RewardScalesCfg()
     only_positive_rewards: bool = True
     tracking_sigma: float = 0.25
+    soft_dof_pos_limit: float = 1.0
     base_height_target: float = 1.0
     max_contact_force: float = 100.0
     # staged scales: a scale may be a list, one value per stage; the env's
@@ -252,6 +258,10 @@ class PolicyCfg:
     actor_hidden_dims: List[int] = [512, 256, 128]
     critic_hidden_dims: List[int] = [512, 256, 128]
     activation: str = "elu"
+    # ActorCriticRecurrent: one LSTM or GRU layer before each MLP
+    rnn_type: str = "lstm"
+    rnn_hidden_size: int = 512
+    rnn_num_layers: int = 1
 
 
 @configclass
@@ -271,7 +281,8 @@ class AlgorithmCfg:
     normalize_advantage_per_mini_batch: bool = False
     # distillation
     gradient_length: int = 15
-    # RND and symmetry augmentation (not ported: the runner raises on them)
+    # RND intrinsic rewards (models/rnd.py) and left-right symmetry
+    # augmentation (rl/ppo.py::make_mirror_fns), as the JAX runner reads them
     rnd_cfg: Optional[dict] = None
     symmetry_cfg: Optional[dict] = None
 

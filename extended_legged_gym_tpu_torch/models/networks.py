@@ -1,7 +1,7 @@
-"""Policy/value networks (port of ``ActorCritic``, ``MLP``, the Gaussian
-helpers, the recurrent cells with ``rnn_carry`` and ``Memory``, and
-``RunningNorm`` of ``models/networks.py``) and the bridge to the JAX
-package's ``.pkl`` checkpoints in both directions.
+"""Policy/value networks (port of ``ActorCritic``, ``ActorCriticRecurrent``,
+``MLP``, the Gaussian helpers, the recurrent cells with ``rnn_carry`` and
+``Memory``, and ``RunningNorm`` of ``models/networks.py``) and the bridge to
+the JAX package's ``.pkl`` checkpoints in both directions.
 
 The JAX networks are flax ``Dense`` stacks: a ``kernel [in, out]`` drawn from
 ``lecun_normal`` (a normal truncated at two standard deviations, scaled to
@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.tree import tree_map
 
 _ACTIVATIONS = {"elu": nn.ELU}
 # modules a JAX checkpoint pickles objects of (the optimizer state's optax
@@ -186,6 +188,13 @@ class Memory(nn.Module):
         return rnn_carry(self.rnn_type, self.hidden_size, batch_dims, device)
 
 
+def mask_carry(carry, dones: torch.Tensor):
+    """``carry`` (a tensor ``[B, H]`` or a tuple of them) with the rows of the
+    envs in ``dones`` [B] zeroed, as the JAX runner multiplies by ``1 - d``."""
+    keep = 1.0 - dones.to(torch.float32)[:, None]
+    return tree_map(lambda h: h * keep, carry)
+
+
 class ActorCritic(nn.Module):
     """Gaussian MLP actor + MLP critic with a state-independent learned std
     (``log_std`` starts at ``log(init_noise_std)``).  ``generator`` seeds the
@@ -215,6 +224,47 @@ class ActorCritic(nn.Module):
 
     def evaluate(self, critic_obs: torch.Tensor) -> torch.Tensor:
         return self.critic(critic_obs)[..., 0]
+
+
+class ActorCriticRecurrent(nn.Module):
+    """Recurrent actor-critic: one LSTM or GRU ``Memory`` before each of the
+    actor and critic MLPs, a state-independent learned std.  The children
+    carry flax's names (``memory_a``, ``memory_c``, ``actor``, ``critic``,
+    ``log_std``), so :func:`flax_tree` / :func:`load_flax_tree` and the
+    checkpoint bridge map it to and from the JAX module's parameters."""
+
+    def __init__(self, num_obs: int, num_actions: int,
+                 actor_hidden_dims: Sequence[int] = (256, 256, 128),
+                 critic_hidden_dims: Sequence[int] = (256, 256, 128),
+                 activation: str = "elu", init_noise_std: float = 1.0,
+                 rnn_hidden_size: int = 256, rnn_type: str = "lstm",
+                 num_critic_obs: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rnn_type, self.rnn_hidden_size = rnn_type, rnn_hidden_size
+        self.memory_a = Memory(num_obs, rnn_hidden_size, rnn_type, generator)
+        self.memory_c = Memory(num_critic_obs or num_obs, rnn_hidden_size, rnn_type, generator)
+        self.actor = MLP(rnn_hidden_size, actor_hidden_dims, num_actions, activation, generator)
+        self.critic = MLP(rnn_hidden_size, critic_hidden_dims, 1, activation, generator)
+        self.log_std = nn.Parameter(torch.full((num_actions,), math.log(init_noise_std)))
+
+    def forward(self, obs: torch.Tensor, carry_a, carry_c,
+                critic_obs: Optional[torch.Tensor] = None):
+        """``(mean [B, A], std [A], value [B], carry_a, carry_c)``."""
+        xa, carry_a = self.memory_a(obs, carry_a)
+        xc, carry_c = self.memory_c(critic_obs if critic_obs is not None else obs, carry_c)
+        return self.actor(xa), self.log_std.exp(), self.critic(xc)[..., 0], carry_a, carry_c
+
+    def act_inference(self, obs: torch.Tensor, carry_a):
+        """The actor's mean and its next carry (the critic's memory is not run)."""
+        xa, carry_a = self.memory_a(obs, carry_a)
+        return self.actor(xa), carry_a
+
+    def initialize_carries(self, batch_dims: Tuple[int, ...], device=None):
+        """Zero ``(carry_a, carry_c)`` on ``device`` (default: the network's)."""
+        device = device if device is not None else self.log_std.device
+        return (self.memory_a.initialize_carry(batch_dims, device),
+                self.memory_c.initialize_carry(batch_dims, device))
 
 
 def gaussian_log_prob(mean, std, actions):
@@ -263,6 +313,29 @@ class RunningNorm:
     def to(self, device) -> "RunningNorm":
         return dataclasses.replace(self, mean=self.mean.to(device), var=self.var.to(device),
                                    count=self.count.to(device))
+
+
+class RecurrentInferencePolicy:
+    """The deterministic policy of an :class:`ActorCriticRecurrent` as a
+    stateful ``obs -> actions``: each call advances the actor's carry (one
+    row per env, ``carry``), which :meth:`reset` zeroes for the envs whose
+    episode ended.  Observations are normalized by ``obs_norm`` where there
+    is one.  It reads the network's parameters when called."""
+
+    def __init__(self, net: ActorCriticRecurrent, obs_norm: Optional[RunningNorm],
+                 batch_size: int):
+        self.net = net
+        self.obs_norm = obs_norm.to(net.log_std.device) if obs_norm is not None else None
+        self.carry = net.initialize_carries((batch_size,))[0]
+
+    @torch.no_grad()
+    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
+        obs = self.obs_norm.normalize(obs) if self.obs_norm is not None else obs
+        mean, self.carry = self.net.act_inference(obs, self.carry)
+        return mean
+
+    def reset(self, dones: torch.Tensor):
+        self.carry = mask_carry(self.carry, dones)
 
 
 def inference_policy(net: ActorCritic,
@@ -345,21 +418,43 @@ def _dense_to_linear(tree: Dict, prefix: str, out: Dict[str, torch.Tensor]):
         k += 1
 
 
+def _flax_state_dict(tree: Dict, prefix: str, out: Dict[str, torch.Tensor]):
+    """A flax tree of ``Dense`` layers and leaves as the ``state_dict`` of the
+    module whose children carry flax's names (:func:`flax_tree`'s inverse for
+    modules of linear layers)."""
+    for name, sub in tree.items():
+        if isinstance(sub, dict) and "kernel" in sub:
+            out[f"{prefix}{name}.weight"] = torch.as_tensor(np.asarray(sub["kernel"]).T.copy())
+            if "bias" in sub:
+                out[f"{prefix}{name}.bias"] = torch.as_tensor(np.asarray(sub["bias"]).copy())
+        elif isinstance(sub, dict):
+            _flax_state_dict(sub, f"{prefix}{name}.", out)
+        else:
+            out[prefix + name] = torch.as_tensor(np.asarray(sub).copy())
+
+
 def params_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (``{"params": {"actor", "critic", "log_std"}}``
-    or its inner dict) as an :class:`ActorCritic` ``state_dict``."""
+    or its inner dict) as an :class:`ActorCritic` ``state_dict``, or, where
+    the tree has ``memory_a``, as an :class:`ActorCriticRecurrent` one."""
     params = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}
+    if "memory_a" in params:
+        _flax_state_dict(params, "", out)
+        return out
     _dense_to_linear(params["actor"], "actor", out)
     _dense_to_linear(params["critic"], "critic", out)
     out["log_std"] = torch.as_tensor(np.asarray(params["log_std"]).copy())
     return out
 
 
-def params_to_jax(net: ActorCritic) -> Dict:
+def params_to_jax(net: nn.Module) -> Dict:
     """The inverse of :func:`params_from_jax`: ``net``'s parameters as the
     flax tree ``{"params": {"actor": {"Dense_k": {"kernel" [in, out],
-    "bias"}}, "critic": ..., "log_std"}}`` of numpy arrays."""
+    "bias"}}, "critic": ..., "log_std"}}`` of numpy arrays (an
+    :class:`ActorCriticRecurrent` adds ``memory_a`` and ``memory_c``)."""
+    if isinstance(net, ActorCriticRecurrent):
+        return {"params": flax_tree(net)}
     def dense(seq: nn.Sequential) -> Dict:
         linears = [m for m in seq if isinstance(m, nn.Linear)]
         return {f"Dense_{k}": {"kernel": m.weight.detach().cpu().numpy().T.copy(),
@@ -428,7 +523,8 @@ def read_checkpoint(path: str) -> dict:
 
 def load_jax_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Optional[RunningNorm]]:
     """Read a ``.pkl`` written by the JAX runner (or the port's runner):
-    ``(state_dict, obs_norm)``, the :class:`ActorCritic` parameters and the
+    ``(state_dict, obs_norm)``, the :class:`ActorCritic` (or
+    :class:`ActorCriticRecurrent`) parameters and the
     observation normalizer the policy was trained with (``None`` without
     empirical normalization).  A policy built from it must apply the
     normalizer: :func:`inference_policy`."""

@@ -48,6 +48,7 @@ from ..physics.aba import aba_physics_step, foot_geoms
 from ..physics.engine import EnvPhysParams, PhysState, SimParams, StepReport
 from ..physics.model import RobotModel
 from ..terrain.heightfield import TerrainData, flat_terrain
+from ..utils.tree import tree_map
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "physics_step.cu")
@@ -366,8 +367,15 @@ class DecimatedEnvStep:
             tau = scaled_actions
         return torch.maximum(torch.minimum(tau, t["tl"]), -t["tl"])
 
-    def plain(self, phys: PhysState, actions: torch.Tensor, env_params: EnvPhysParams):
-        """The plain version: torques then ``aba_physics_step``, per substep."""
+    def plain(self, phys: PhysState, actions: torch.Tensor, env_params: EnvPhysParams,
+              dtype: Optional[torch.dtype] = None):
+        """The plain version: torques then ``aba_physics_step``, per substep;
+        with ``dtype`` (``torch.float64``) computed in that type and returned
+        as float32."""
+        if dtype is not None:
+            cast = lambda x: x.to(dtype)
+            out = self.plain(tree_map(cast, phys), cast(actions), tree_map(cast, env_params))
+            return tree_map(lambda x: x.to(torch.float32), out)
         scaled = actions * self.action_scale
         for _ in range(self.decimation):
             tau = self.pd_torques(scaled, phys)

@@ -112,11 +112,12 @@ def foot_geoms(model: RobotModel) -> List[int]:
 def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
                      state: PhysState, joint_torque: torch.Tensor,
                      env_params: EnvPhysParams):
-    """One semi-implicit Euler step of B envs: ``(new_state, StepReport)``."""
+    """One semi-implicit Euler step of B envs: ``(new_state, StepReport)``,
+    in the floating-point type of ``state``."""
     if any(t != "revolute" for t in model.joint_types) or model.fix_base:
         raise NotImplementedError("the port's ABA step takes floating-base, revolute-joint robots")
-    dev, dt = state.base_pos.device, sp.dt
-    T = model.torch(dev)
+    dev, dt, ft = state.base_pos.device, sp.dt, state.base_pos.dtype
+    T = model.torch(dev, ft)
     nb, nj = model.nb, model.nj
     B = state.base_pos.shape[0]
     mass = T["mass"].expand(B, nb).clone()
@@ -131,7 +132,7 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     w_b = _mv(R0.transpose(-1, -2), state.base_ang_vel)
     v_b = _mv(R0.transpose(-1, -2), state.base_lin_vel)
     v[0] = torch.cat([w_b, v_b], -1)
-    zeros3 = torch.zeros(3, device=dev)
+    zeros3 = torch.zeros(3, dtype=ft, device=dev)
     for i in range(1, nb):
         par = model.parent[i]
         r = T["joint_origin_pos"][i]
@@ -161,16 +162,16 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     f_b = _mv(RgT, f_expl)
     F_sp = torch.cat([_cross(goff, f_b), f_b], -1)       # [B, ng, 6]
     n_b = _mv(RgT, contact.n)
-    eye3 = torch.eye(3, device=dev)
+    eye3 = torch.eye(3, dtype=ft, device=dev)
     Db = (contact.kt[..., None, None] * eye3
           + contact.kd_minus_kt[..., None, None] * n_b[..., :, None] * n_b[..., None, :])
     rx = skew(goff)                                      # [ng, 3, 3]
     rxD = rx @ Db
     Ds = torch.cat([torch.cat([rxD @ rx.transpose(-1, -2), rxD], -1),
                     torch.cat([rxD.transpose(-1, -2), Db], -1)], -2)
-    F_body = torch.zeros(B, nb, 6, device=dev).index_add_(1, gb, F_sp)
-    Ds_body = torch.zeros(B, nb, 6, 6, device=dev).index_add_(1, gb, Ds)
-    g = torch.tensor(sp.gravity, dtype=torch.float32, device=dev)
+    F_body = torch.zeros(B, nb, 6, dtype=ft, device=dev).index_add_(1, gb, F_sp)
+    Ds_body = torch.zeros(B, nb, 6, 6, dtype=ft, device=dev).index_add_(1, gb, Ds)
+    g = torch.tensor(sp.gravity, dtype=ft, device=dev)
     for i in range(nb):
         f_g = mass[:, i, None] * _mv(R_w[i].transpose(-1, -2), g.expand(B, 3))
         pA[i] = pA[i] - F_body[:, i] - torch.cat([_cross(T["com"][i], f_g), f_g], -1)
@@ -191,7 +192,7 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
         pA[par] = pA[par] + _xforce_T(XE[i], r, pa)
 
     # ---------------- base solve + forward sweep ----------------
-    a0 = cho_solve_unrolled(IA[0] + 1e-6 * torch.eye(6, device=dev), -pA[0])
+    a0 = cho_solve_unrolled(IA[0] + 1e-6 * torch.eye(6, dtype=ft, device=dev), -pA[0])
     a_cl = a0[:, 3:] + _cross(w_b, v_b)
     base_acc = torch.cat([_mv(R0, a_cl), _mv(R0, a0[:, :3])], -1)
     a, qdd = [a0] + [None] * (nb - 1), []

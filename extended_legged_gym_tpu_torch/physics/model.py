@@ -77,15 +77,16 @@ class RobotModel:
     def num_feet(self) -> int:
         return int(self.foot_body.shape[0])
 
-    def torch(self, device) -> Dict[str, torch.Tensor]:
-        """Tensor copies of the array fields on ``device`` (cached)."""
-        key = str(torch.device(device))
+    def torch(self, device, float_dtype=torch.float32) -> Dict[str, torch.Tensor]:
+        """Tensor copies of the array fields on ``device`` (cached), the
+        floating-point ones as ``float_dtype``."""
+        key = f"{torch.device(device)}/{float_dtype}"
         if key not in self._tensors:
             out = {}
             for f in dataclasses.fields(self):
                 v = getattr(self, f.name)
                 if isinstance(v, np.ndarray):
-                    dtype = torch.int64 if f.name in _INT_ARRAYS else torch.float32
+                    dtype = torch.int64 if f.name in _INT_ARRAYS else float_dtype
                     out[f.name] = torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
             self._tensors[key] = out
         return self._tensors[key]

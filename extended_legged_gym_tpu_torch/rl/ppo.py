@@ -4,17 +4,20 @@ adaptive-KL learning rate, global-norm gradient clipping and Adam.
 The JAX update is one jitted scan over epochs x minibatches; here it is a
 Python loop of eager PyTorch ops that never reads a device value on the host:
 the learning rate, Adam's step count, the non-finite guard and the metrics
-stay device tensors until the caller reads them.  Left out: the recurrent
-update and the symmetry loss (the runner raises on either).
+stay device tensors until the caller reads them.  ``ppo_update`` takes the
+symmetry-augmentation term (``make_mirror_fns``); ``ppo_update_recurrent``
+replays each minibatch of envs through the recurrent policy over the whole
+window, as the JAX function of the same name does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..models.networks import ActorCritic, gaussian_entropy, gaussian_log_prob
+from ..models.networks import ActorCritic, gaussian_entropy, gaussian_log_prob, mask_carry
+from ..utils.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -123,8 +126,33 @@ class Adam:
         self.count = torch.tensor(float(sd["count"]), device=dev)
 
 
-def _loss(net: ActorCritic, cfg: PPOConfig, mb: Dict[str, torch.Tensor]):
-    mean, std, value = net(mb["obs"], mb["critic_obs"])
+class Mirror:
+    """A left-right mirror ``x -> x[..., perm] * signs`` (``make_mirror_fns``),
+    its index and sign tensors kept per device."""
+
+    def __init__(self, perm, signs):
+        self.perm = torch.as_tensor(perm, dtype=torch.int64)
+        self.signs = torch.as_tensor(signs, dtype=torch.float32)
+        self._dev = {}
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        key = str(x.device)
+        if key not in self._dev:
+            self._dev[key] = (self.perm.to(x.device), self.signs.to(x.device))
+        perm, signs = self._dev[key]
+        return x[..., perm] * signs
+
+
+def make_mirror_fns(perm, signs) -> Mirror:
+    """The mirroring function of an index permutation and sign flips (the
+    usual left-right symmetry spec of a legged robot)."""
+    return Mirror(perm, signs)
+
+
+def _ppo_loss(cfg: PPOConfig, mean, std, value, mb: Dict[str, torch.Tensor]):
+    """The clipped surrogate, (clipped) value loss and entropy of the policy's
+    outputs on a minibatch, their total, and the KL from the collected
+    Gaussian for the adaptive schedule."""
     log_prob = gaussian_log_prob(mean, std, mb["actions"])
     ratio = torch.exp(log_prob - mb["log_probs"])
     surr1 = -mb["advantages"] * ratio
@@ -147,40 +175,22 @@ def _loss(net: ActorCritic, cfg: PPOConfig, mb: Dict[str, torch.Tensor]):
     return total, v_loss.detach(), surrogate_loss.detach(), entropy.detach(), kl.mean()
 
 
-def ppo_update(net: ActorCritic, cfg: PPOConfig, optimizer: Adam, batch: Transition,
-               advantages: torch.Tensor, returns: torch.Tensor, learning_rate: torch.Tensor,
-               perms: Optional[Sequence[torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Epochs x shuffled minibatches over the ``[T, B]`` batch.  Each epoch's
-    permutation of the ``T * B`` samples is ``perms[e]`` where given (the
-    tests inject the JAX package's), else ``torch.randperm`` from
-    ``generator``.  Returns the new learning rate and the metrics (device
-    scalars), as the JAX ``ppo_update`` does."""
-    T, B = advantages.shape
-    N = T * B
-    mb_size = N // cfg.num_mini_batches
-    # whole-batch normalisation; jnp.std is the population std (ddof 0)
-    advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
-
-    def flat(x):
-        return x.reshape((N,) + x.shape[2:])
-
-    data = dict(obs=flat(batch.obs), critic_obs=flat(batch.critic_obs),
-                actions=flat(batch.actions), values=flat(batch.values),
-                log_probs=flat(batch.log_probs), mu=flat(batch.mu),
-                sigma=flat(batch.sigma[:, None, :].expand(batch.mu.shape)),
-                advantages=flat(advantages), returns=flat(returns))
-    dev = advantages.device
+def _epochs(cfg: PPOConfig, optimizer: Adam, learning_rate: torch.Tensor, n: int, dev,
+            minibatch_loss: Callable, perms, generator):
+    """Epochs x minibatches of guarded Adam steps: each epoch permutes ``n``
+    items (``perms[e]`` where given, else ``torch.randperm`` from
+    ``generator``) into ``num_mini_batches`` index sets; ``minibatch_loss``
+    maps one to ``_ppo_loss``'s outputs.  Returns the new learning rate and
+    the mean metrics (device scalars)."""
+    size = n // cfg.num_mini_batches
     lr = learning_rate
     rows: List[torch.Tensor] = []
     for e in range(cfg.num_learning_epochs):
         perm = (perms[e].to(dev) if perms is not None
-                else torch.randperm(N, generator=generator, device=dev))
-        idx = perm[: mb_size * cfg.num_mini_batches].reshape(cfg.num_mini_batches, mb_size)
+                else torch.randperm(n, generator=generator, device=dev))
+        idx = perm[: size * cfg.num_mini_batches].reshape(cfg.num_mini_batches, size)
         for m in range(cfg.num_mini_batches):
-            mb = {k: v[idx[m]] for k, v in data.items()}
-            loss, v_loss, surr, ent, kl = _loss(net, cfg, mb)
+            loss, v_loss, surr, ent, kl = minibatch_loss(idx[m])
             grads = torch.autograd.grad(loss, optimizer.params)
             if cfg.schedule == "adaptive":
                 # the minibatch's own KL moves the rate before its step
@@ -197,3 +207,87 @@ def ppo_update(net: ActorCritic, cfg: PPOConfig, optimizer: Adam, batch: Transit
     mean = m.mean(0)
     return lr, dict(loss=mean[0], value_loss=mean[1], surrogate_loss=mean[2], entropy=mean[3],
                     kl=mean[4], nonfinite_skips=m[:, 5].sum(), learning_rate=lr)
+
+
+def _normalized(advantages: torch.Tensor) -> torch.Tensor:
+    """Whole-batch normalisation; jnp.std is the population std (ddof 0)."""
+    return (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+
+
+def ppo_update(net: ActorCritic, cfg: PPOConfig, optimizer: Adam, batch: Transition,
+               advantages: torch.Tensor, returns: torch.Tensor, learning_rate: torch.Tensor,
+               perms: Optional[Sequence[torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None,
+               symmetry: Optional[Tuple[Callable, Callable, float]] = None
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Epochs x shuffled minibatches over the ``[T, B]`` batch.  Each epoch's
+    permutation of the ``T * B`` samples is ``perms[e]`` where given (the
+    tests inject the JAX package's), else ``torch.randperm`` from
+    ``generator``.  ``symmetry`` = (mirror_obs, mirror_act, coef) adds
+    ``coef`` times the mean squared difference between the actor's mean on
+    mirrored observations and the mirrored mean (held constant).  Returns the
+    new learning rate and the metrics (device scalars), as the JAX
+    ``ppo_update`` does."""
+    T, B = advantages.shape
+    N = T * B
+
+    def flat(x):
+        return x.reshape((N,) + x.shape[2:])
+
+    data = dict(obs=flat(batch.obs), critic_obs=flat(batch.critic_obs),
+                actions=flat(batch.actions), values=flat(batch.values),
+                log_probs=flat(batch.log_probs), mu=flat(batch.mu),
+                sigma=flat(batch.sigma[:, None, :].expand(batch.mu.shape)),
+                advantages=flat(_normalized(advantages)), returns=flat(returns))
+
+    def minibatch_loss(idx):
+        mb = {k: v[idx] for k, v in data.items()}
+        mean, std, value = net(mb["obs"], mb["critic_obs"])
+        out = _ppo_loss(cfg, mean, std, value, mb)
+        if symmetry is None:
+            return out
+        mirror_obs, mirror_act, coef = symmetry
+        # the JAX loss runs the critic on the mirrored observations too; its
+        # value takes no part in the loss
+        m_mean = net.act_inference(mirror_obs(mb["obs"]))
+        sym_loss = torch.mean(torch.square(m_mean - mirror_act(mean.detach())))
+        return (out[0] + coef * sym_loss, *out[1:])
+
+    return _epochs(cfg, optimizer, learning_rate, N, advantages.device, minibatch_loss, perms,
+                   generator)
+
+
+def ppo_update_recurrent(net, cfg: PPOConfig, optimizer: Adam, batch: Transition, carries0,
+                         advantages: torch.Tensor, returns: torch.Tensor,
+                         learning_rate: torch.Tensor,
+                         perms: Optional[Sequence[torch.Tensor]] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """PPO for a recurrent policy (``ActorCriticRecurrent``): minibatches
+    split the env axis (each epoch permutes the ``B`` envs, ``perms[e]``
+    where given), and each minibatch's loss replays its envs' whole
+    ``T``-step window from the window-start carries ``carries0`` = (actor,
+    critic), zeroing a carry after a step that ended its episode, as the
+    collection did.  The learning-rate schedule, clipping, guard and metrics
+    are ``ppo_update``'s."""
+    T, B = advantages.shape
+    data = dict(obs=batch.obs, critic_obs=batch.critic_obs, actions=batch.actions,
+                values=batch.values, log_probs=batch.log_probs, mu=batch.mu,
+                sigma=batch.sigma[:, None, :].expand(batch.mu.shape),
+                advantages=_normalized(advantages), returns=returns,
+                dones=batch.dones.to(torch.float32))
+
+    def minibatch_loss(idx):
+        mb = {k: v[:, idx] for k, v in data.items()}
+        ca, cc = (tree_map(lambda h: h[idx], c) for c in carries0)
+        means, values = [], []
+        for t in range(T):
+            mean, std, value, ca, cc = net(mb["obs"][t], ca, cc, mb["critic_obs"][t])
+            d = mb["dones"][t]
+            ca, cc = mask_carry(ca, d), mask_carry(cc, d)
+            means.append(mean)
+            values.append(value)
+        return _ppo_loss(cfg, torch.stack(means), std, torch.stack(values), mb)
+
+    return _epochs(cfg, optimizer, learning_rate, B, advantages.device, minibatch_loss, perms,
+                   generator)

@@ -1,4 +1,7 @@
-"""On-policy training runner for the MLP policy (port of ``rl/runner.py``).
+"""On-policy training runner (port of ``rl/runner.py``): the MLP policy
+(``ActorCritic``) or the recurrent one (``ActorCriticRecurrent``), with RND
+intrinsic rewards (``algorithm.rnd_cfg``) and symmetry augmentation
+(``algorithm.symmetry_cfg``).
 
 One iteration collects ``num_steps_per_env`` steps of every env into device
 tensors ``[T, B, ...]`` (the physics step is the fused kernel on the card),
@@ -7,16 +10,30 @@ episodes that ended into the JAX runner's metric keys and advances the
 staged rewards.  Nothing inside the collection or minibatch loops reads a
 device value on the host; ``learn`` reads the metrics once per iteration.
 
+* Recurrent policies: the carries advance each step and are zeroed where an
+  env reset; the window-start carries are kept for the update's replay
+  (``ppo_update_recurrent``) and the bootstrap value comes from the carries
+  at the window's end.
+* RND: the intrinsic reward of each step's new observation is added to its
+  reward; after the PPO update the predictor takes one Adam step
+  (``rnd_cfg["learning_rate"]``, no clipping) over the window's policy
+  observations, with the normalizers as collection left them.
+* Symmetry: ``symmetry_cfg`` = {obs_perm, obs_signs, act_perm, act_signs,
+  coef (0.5)} adds the mirror loss to ``ppo_update``.  The JAX runner passes
+  it to the MLP update only and drops it silently for a recurrent policy;
+  the port refuses that combination.
+
 Checkpoints are pickles in the JAX runner's layout (flax parameter tree,
 ``opt_state=None``, ``learning_rate``, ``obs_norm``, ``iteration``), so the
 JAX ``OnPolicyRunner.load`` reads them; the port's Adam state rides under
-``torch_opt_state`` and the reward stage under ``reward_stage``, which the
-JAX runner ignores.  ``load`` reads the port's checkpoints and the JAX
-package's (parameters and learning rate; a JAX checkpoint's optax state is
-not carried over, so Adam restarts).
+``torch_opt_state``, the reward stage under ``reward_stage`` and the RND
+module (target and predictor trees, normalizers, step, Adam state) under
+``rnd``, which the JAX runner ignores.  ``load`` reads the port's
+checkpoints and the JAX package's (parameters and learning rate; a JAX
+checkpoint's optax state is not carried over, so Adam restarts).
 
-Not ported (raise ``NotImplementedError``): recurrent policies, RND,
-symmetry augmentation, ``warmstart_from_reference`` and ``export_policy``.
+Not ported (raise ``NotImplementedError``): ``warmstart_from_reference`` and
+``export_policy``.
 """
 from __future__ import annotations
 
@@ -28,21 +45,30 @@ import torch
 
 from ..envs.legged_robot import EnvState, LeggedRobot
 from ..envs.legged_robot_config import LeggedRobotCfgPPO
-from ..models.networks import (ActorCritic, RunningNorm, dump_checkpoint, gaussian_log_prob,
-                               inference_policy, norm_from_checkpoint, params_from_jax,
-                               params_to_jax, read_checkpoint)
+from ..models.networks import (ActorCritic, ActorCriticRecurrent, RecurrentInferencePolicy,
+                               RunningNorm, dump_checkpoint, flax_tree, gaussian_log_prob,
+                               inference_policy, load_flax_tree, mask_carry,
+                               norm_from_checkpoint, params_from_jax, params_to_jax,
+                               read_checkpoint)
+from ..models.rnd import RandomNetworkDistillation
 from ..utils.metrics import MetricsWriter
-from .ppo import Adam, PPOConfig, Transition, compute_gae, ppo_update
+from .ppo import (Adam, PPOConfig, Transition, compute_gae, make_mirror_fns, ppo_update,
+                  ppo_update_recurrent)
 
 
 class OnPolicyRunner:
     def __init__(self, env: LeggedRobot, train_cfg: LeggedRobotCfgPPO,
                  log_dir: Optional[str] = None, seed: Optional[int] = None):
         alg, pol, run = train_cfg.algorithm, train_cfg.policy, train_cfg.runner
-        if run.policy_class_name != "ActorCritic":
+        if run.policy_class_name not in ("ActorCritic", "ActorCriticRecurrent"):
             raise NotImplementedError(f"not ported yet: policy {run.policy_class_name}")
-        if alg.rnd_cfg or alg.symmetry_cfg:
-            raise NotImplementedError("not ported yet: RND and symmetry augmentation")
+        self.recurrent = run.policy_class_name == "ActorCriticRecurrent"
+        if self.recurrent and alg.symmetry_cfg:
+            raise ValueError("symmetry_cfg with ActorCriticRecurrent: the recurrent update takes "
+                             "no symmetry term (the JAX runner drops it silently)")
+        if self.recurrent and pol.rnn_num_layers != 1:
+            raise ValueError(f"rnn_num_layers {pol.rnn_num_layers}: the recurrent policy's "
+                             "Memory has one layer")
         self.env, self.cfg, self.log_dir = env, train_cfg, log_dir
         self.device = env.device
         self.writer = MetricsWriter(log_dir) if log_dir else None
@@ -58,11 +84,35 @@ class OnPolicyRunner:
         # the initialisation draws on the CPU, so a seed gives the same network
         # on every device; action noise and minibatch permutations come from
         # a generator on the env's device
-        self.network = ActorCritic(
-            env.num_obs, env.num_actions, pol.actor_hidden_dims, pol.critic_hidden_dims,
-            pol.activation, pol.init_noise_std,
-            generator=torch.Generator().manual_seed(seed)).to(self.device)
+        init_gen = torch.Generator().manual_seed(seed)
+        if self.recurrent:
+            self.network = ActorCriticRecurrent(
+                env.num_obs, env.num_actions, pol.actor_hidden_dims, pol.critic_hidden_dims,
+                pol.activation, pol.init_noise_std, pol.rnn_hidden_size, pol.rnn_type,
+                generator=init_gen).to(self.device)
+            self.carries = self.initial_carries()
+        else:
+            self.network = ActorCritic(
+                env.num_obs, env.num_actions, pol.actor_hidden_dims, pol.critic_hidden_dims,
+                pol.activation, pol.init_noise_std, generator=init_gen).to(self.device)
+            self.carries = None
         self.optimizer = Adam(self.network.parameters(), alg.max_grad_norm)
+        self.symmetry = None
+        if alg.symmetry_cfg:
+            sc = alg.symmetry_cfg
+            self.symmetry = (make_mirror_fns(sc["obs_perm"], sc["obs_signs"]),
+                             make_mirror_fns(sc["act_perm"], sc["act_signs"]), sc.get("coef", 0.5))
+        self.rnd = None
+        if alg.rnd_cfg:
+            rc = alg.rnd_cfg
+            self.rnd = RandomNetworkDistillation(
+                env.num_obs, rc.get("num_outputs", 64), rc.get("hidden_dims", (256, 256)),
+                rc.get("weight", 1.0), rc.get("weight_schedule"), generator=init_gen,
+                device=self.device)
+            # optax.adam: no gradient clipping
+            self.rnd_optimizer = Adam(self.rnd.predictor.parameters(), float("inf"))
+            self.rnd_learning_rate = torch.tensor(rc.get("learning_rate", 1e-3),
+                                                  device=self.device)
         self.learning_rate = torch.tensor(alg.learning_rate, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.obs_norm = (RunningNorm.create(env.num_obs, device=self.device)
@@ -75,31 +125,44 @@ class OnPolicyRunner:
         obs = obs_norm.normalize(es.obs) if obs_norm is not None else es.obs
         return obs, obs
 
+    def _forward(self, obs, critic_obs, carries):
+        """``(mean, std, value, carries)`` of the policy (carries pass
+        through an MLP policy)."""
+        if not self.recurrent:
+            return (*self.network(obs, critic_obs), carries)
+        mean, std, value, ca, cc = self.network(obs, *carries, critic_obs)
+        return mean, std, value, (ca, cc)
+
     @torch.no_grad()
-    def _collect(self, es: EnvState, action_noise: Optional[torch.Tensor]):
-        """``num_steps_per_env`` steps of every env: ``(env_state, batch)``.
-        The action noise is ``action_noise[t]`` where given (tests inject the
-        JAX runner's), else standard normal from the runner's generator."""
-        env, net, gamma = self.env, self.network, self.ppo_cfg.gamma
+    def _collect(self, es: EnvState, carries, action_noise: Optional[torch.Tensor]):
+        """``num_steps_per_env`` steps of every env: ``(env_state, carries,
+        batch)``.  The action noise is ``action_noise[t]`` where given (tests
+        inject the JAX runner's), else standard normal from the runner's
+        generator."""
+        env, gamma = self.env, self.ppo_cfg.gamma
         rows: Dict[str, List[torch.Tensor]] = {k: [] for k in (
             "obs", "critic_obs", "actions", "rewards", "dones", "values", "log_probs", "mu",
             "sigma")}
         for t in range(self.num_steps_per_env):
             obs, critic_obs = self._policy_io(es, self.obs_norm)
-            mean, std, value = net(obs, critic_obs)
+            mean, std, value, carries = self._forward(obs, critic_obs, carries)
             eps = (action_noise[t] if action_noise is not None else
                    torch.randn(mean.shape, generator=self.generator, device=self.device))
             actions = mean + std * eps
             log_prob = gaussian_log_prob(mean, std, actions)
             es = env.step(es, actions)
+            if self.recurrent:
+                carries = tuple(mask_carry(c, es.reset_buf) for c in carries)
             # timeout bootstrap with the value of the observation before the
             # step; dones is reset_buf, which includes the time-outs
             rewards = es.rew + gamma * value * es.time_out_buf
+            if self.rnd is not None:
+                rewards = rewards + self.rnd.intrinsic_reward(es.obs)
             for k, v in (("obs", obs), ("critic_obs", critic_obs), ("actions", actions),
                          ("rewards", rewards), ("dones", es.reset_buf), ("values", value),
                          ("log_probs", log_prob), ("mu", mean), ("sigma", std)):
                 rows[k].append(v)
-        return es, Transition(**{k: torch.stack(v) for k, v in rows.items()})
+        return es, carries, Transition(**{k: torch.stack(v) for k, v in rows.items()})
 
     def train_iteration(self, action_noise: Optional[torch.Tensor] = None,
                         perms: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
@@ -111,23 +174,37 @@ class OnPolicyRunner:
         # the iteration's logging window starts empty
         es = self.env_state.replace(episode_metrics=env.zero_episode_metrics())
         t0 = time.perf_counter()
-        es, batch = self._collect(es, action_noise)
+        carries0 = self.carries            # window start, for the recurrent replay
+        es, carries, batch = self._collect(es, carries0, action_noise)
         obs_norm = self.obs_norm
         if obs_norm is not None:
             # as in the JAX runner: updated with the (already normalized)
             # observations the policy saw
             obs_norm = obs_norm.update(batch.obs)
         with torch.no_grad():
-            last_value = self.network.evaluate(self._policy_io(es, self.obs_norm)[1])
+            obs, critic_obs = self._policy_io(es, self.obs_norm)
+            last_value = self._forward(obs, critic_obs, carries)[2]
         advantages, returns = compute_gae(batch.rewards, batch.dones, batch.values, last_value,
                                           cfg.gamma, cfg.lam)
         action_std = self.network.log_std.detach().exp().mean()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
-        self.learning_rate, metrics = ppo_update(
-            self.network, cfg, self.optimizer, batch, advantages, returns, self.learning_rate,
-            perms=perms, generator=self.generator)
+        if self.recurrent:
+            self.learning_rate, metrics = ppo_update_recurrent(
+                self.network, cfg, self.optimizer, batch, carries0, advantages, returns,
+                self.learning_rate, perms=perms, generator=self.generator)
+        else:
+            self.learning_rate, metrics = ppo_update(
+                self.network, cfg, self.optimizer, batch, advantages, returns,
+                self.learning_rate, perms=perms, generator=self.generator,
+                symmetry=self.symmetry)
+        if self.rnd is not None:
+            loss = self.rnd.predictor_loss(batch.obs.reshape(-1, batch.obs.shape[-1]))
+            grads = torch.autograd.grad(loss, self.rnd_optimizer.params)
+            self.rnd_optimizer.step(grads, self.rnd_learning_rate,
+                                    torch.ones((), dtype=torch.bool, device=self.device))
+            metrics["rnd_loss"] = loss.detach()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_times = dict(collection_s=t1 - t0, update_s=time.perf_counter() - t1)
@@ -153,7 +230,7 @@ class OnPolicyRunner:
             es = es.replace(reward_stage=torch.where(advance, es.reward_stage + 1,
                                                      es.reward_stage))
             metrics["reward_stage"] = es.reward_stage.to(torch.float32)
-        self.env_state, self.obs_norm = es, obs_norm
+        self.env_state, self.obs_norm, self.carries = es, obs_norm, carries
         self.iteration += 1
         return metrics
 
@@ -196,6 +273,12 @@ class OnPolicyRunner:
                        obs_norm=self.obs_norm, iteration=self.iteration,
                        torch_opt_state=self.optimizer.state_dict(),
                        reward_stage=int(self.env_state.reward_stage.item()))
+        if self.rnd is not None:
+            r = self.rnd
+            payload["rnd"] = dict(target=flax_tree(r.target), predictor=flax_tree(r.predictor),
+                                  state_norm=r.state_norm, reward_norm=r.reward_norm,
+                                  step=int(r.step.item()),
+                                  torch_opt_state=self.rnd_optimizer.state_dict())
         with open(path, "wb") as f:
             dump_checkpoint(payload, f)
 
@@ -211,16 +294,37 @@ class OnPolicyRunner:
                 self.optimizer.load_state_dict(payload["torch_opt_state"])
         if payload.get("obs_norm") is not None:
             self.obs_norm = norm_from_checkpoint(payload["obs_norm"]).to(self.device)
+        if self.rnd is not None and payload.get("rnd") is not None:
+            r, saved = self.rnd, payload["rnd"]
+            load_flax_tree(r.target, saved["target"])
+            load_flax_tree(r.predictor, saved["predictor"])
+            norm = lambda n: norm_from_checkpoint(n).to(self.device) if n is not None else None
+            r.state_norm, r.reward_norm = norm(saved["state_norm"]), norm(saved["reward_norm"])
+            r.step = torch.tensor(int(saved["step"]), device=self.device)
+            if load_optimizer:
+                self.rnd_optimizer.load_state_dict(saved["torch_opt_state"])
         if payload.get("reward_stage") is not None:
             self.env_state = self.env_state.replace(
                 reward_stage=torch.tensor(int(payload["reward_stage"]), device=self.device))
         self.iteration = int(payload.get("iteration", 0))
         return payload
 
-    def get_inference_policy(self):
+    def get_inference_policy(self, batch_size: Optional[int] = None):
         """The deterministic policy ``obs -> actions`` (the actor's mean on
-        normalized observations)."""
+        normalized observations).  For a recurrent policy it is a
+        :class:`RecurrentInferencePolicy` of ``batch_size`` (default: the
+        env's) envs, which carries its own state; call its ``reset(dones)``
+        after each env step."""
+        if self.recurrent:
+            return RecurrentInferencePolicy(self.network, self.obs_norm,
+                                            batch_size or self.env.num_envs)
         return inference_policy(self.network, self.obs_norm)
+
+    def initial_carries(self, batch_size: Optional[int] = None):
+        """Zero (actor, critic) carries of a recurrent policy."""
+        if not self.recurrent:
+            raise ValueError("carries exist for recurrent policies only")
+        return self.network.initialize_carries((batch_size or self.env.num_envs,), self.device)
 
     def warmstart_from_reference(self, pt_path: str):
         raise NotImplementedError("not ported yet: warm start from a reference .pt checkpoint")

@@ -1,9 +1,10 @@
-"""ANYmal-C task configs (port of the rough, ray-observation rough and flat
-configs of ``robots/anymal_c.py``).
+"""ANYmal-C task configs (port of the rough, ray-observation rough, flat and
+SEA-actuated flat configs of ``robots/anymal_c.py``).
 
 The robot model is read in place from the JAX package's committed JSON."""
 from __future__ import annotations
 
+import json
 import os
 
 from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
@@ -87,6 +88,16 @@ def anymal_c_flat_cfg() -> LeggedRobotCfg:
     return cfg
 
 
+def anymal_c_flat_sea_cfg() -> LeggedRobotCfg:
+    """The flat task actuated through the ANYdrive v3 SEA LSTM (the
+    reference's training actuation): each substep's torques come from the
+    actuator network, each substep one launch of the torques-in B1 route."""
+    cfg = anymal_c_flat_cfg()
+    cfg.control.use_actuator_network = True
+    cfg.control.actuator_net_file = os.path.join(_DATA, "anydrive_v3_lstm.json")
+    return cfg
+
+
 def anymal_c_rough_raycast_cfg() -> LeggedRobotCfg:
     """The perceptive rough task: the 235-dim rough observation plus 32
     forward cone rays (60 degrees, 10 m, mounted 0.5 m ahead of the base) as
@@ -121,3 +132,20 @@ def anymal_c_rough_ppo_cfg(experiment: str = "rough_anymal_c") -> LeggedRobotCfg
     train.runner.experiment_name = experiment
     train.runner.max_iterations = 1500
     return train
+
+
+def anymal_c_symmetry_cfg(coef: float = 0.5) -> dict:
+    """A ``symmetry_cfg`` for the flat task: the mirror in the sagittal plane
+    (y -> -y) of its 48-dim observation and 12 actions.  Base linear
+    velocity and gravity flip y, angular velocity flips x and z, the command
+    flips its lateral speed and yaw rate; each joint takes its mirror leg's
+    value (L <-> R), the hip abduction (HAA) sign flipped."""
+    with open(os.path.join(_DATA, "anymal_c.json")) as f:
+        joints = json.load(f)["joint_names"]
+    mirror = {"L": "R", "R": "L"}
+    jperm = [joints.index(mirror[n[0]] + n[1:]) for n in joints]
+    jsign = [-1.0 if n.endswith("HAA") else 1.0 for n in joints]
+    base_signs = [1.0, -1.0, 1.0, -1.0, 1.0, -1.0, 1.0, -1.0, 1.0, 1.0, -1.0, -1.0]
+    obs_perm = list(range(12)) + [o + p for o in (12, 24, 36) for p in jperm]
+    return dict(obs_perm=obs_perm, obs_signs=base_signs + jsign * 3, act_perm=jperm,
+                act_signs=jsign, coef=coef)

@@ -17,8 +17,10 @@ root, for example against an older commit's source:
   python -m extended_legged_gym_tpu_torch.scripts.bench_kernel --source checkout/old.cu \
       --source extended_legged_gym_tpu_torch/csrc/physics_step.cu
 
-Without ``--source`` it times ``csrc/physics_step.cu``.  Prints one JSON
-object.
+Without ``--source`` it times ``csrc/physics_step.cu``.  ``--robot
+elspider_air`` times B1 with the ElSpider Air hexapod's tables (19 bodies,
+18 joints, 46 spheres, 6 feet) instead, at the evaluation's 16 envs and the
+training fleet's 4096 (B2 is not run).  Prints one JSON object.
 """
 import argparse
 import json
@@ -37,6 +39,10 @@ from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg
 
 FLAT_BATCHES = (1024, 776, 24, 8, 128, 97, 3, 2048)
 ROUGH_BATCHES = (32, 4096)
+ELSPIDER_BATCHES = (16, 4096)
+# base heights at which near_standing's robots touch the ground (ANYmal-C
+# stands at ~0.5 m, ElSpider Air at its default pose at ~0.18 m)
+STAND_HEIGHT = {"anymal_c": 0.54, "elspider_air": 0.2}
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 
@@ -55,14 +61,14 @@ def launch_bound(step, B):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", flops, nbytes
 
 
-def near_standing(model, B, seed, device, origins=None):
-    """Seeded near-standing states (base 0.54 m above ``origins`` [>=B, 3], or
-    above the origin), anchors at the base, random friction scales and mass
-    deltas, and random actions."""
+def near_standing(model, B, seed, device, origins=None, height=0.54):
+    """Seeded near-standing states (base ``height`` above ``origins`` [>=B,
+    3], or above the origin), anchors at the base, random friction scales and
+    mass deltas, and random actions."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)
     nj, ng = model.nj, model.ng
-    st = initial_state(model, B, pos=(0.0, 0.0, 0.54), device=device)
+    st = initial_state(model, B, pos=(0.0, 0.0, height), device=device)
     base = st.base_pos if origins is None else st.base_pos + origins[:B]
     st = st.replace(base_pos=base + t(0.05 * rng.standard_normal((B, 3))),
                     joint_pos=st.joint_pos + t(0.1 * rng.standard_normal((B, nj))),
@@ -81,37 +87,53 @@ def rough_env(num_envs: int, device) -> LeggedRobot:
     return LeggedRobot(eval_cfg(num_envs), device=device)
 
 
+def elspider_step(device):
+    """B1 with the ElSpider Air tables: the ``elspider_air_flat`` env's fused
+    control step (PD, 4 substeps)."""
+    from extended_legged_gym_tpu_torch.robots.elspider_air import ElSpider, elspider_air_flat_cfg
+
+    cfg = elspider_air_flat_cfg()
+    cfg.env.num_envs = 1
+    return ElSpider(cfg, device=device).decimated_step
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", action="append", default=None)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--robot", default="anymal_c", choices=["anymal_c", "elspider_air"])
     args = ap.parse_args()
     sources = args.source or [pk.SOURCE]
     dev = torch.device("cuda")
-    flat = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1), device=dev).decimated_step
-    renv = rough_env(max(ROUGH_BATCHES), dev)
-    origins = renv.reset_all(seed=0).env_origins
+    if args.robot == "elspider_air":
+        runs = (("B1", elspider_step(dev), ELSPIDER_BATCHES, None),)
+    else:
+        flat = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1), device=dev).decimated_step
+        renv = rough_env(max(ROUGH_BATCHES), dev)
+        origins = renv.reset_all(seed=0).env_origins
+        runs = (("B1", flat, FLAT_BATCHES, None),
+                ("B2", renv.decimated_step, ROUGH_BATCHES, origins))
     libs, ptxas = {}, {}
     for src in sources:
         libs[src] = pk.load_library(src)
         ptxas[src] = [ln.strip() for ln in pk.build_log(src).splitlines()
                       if any(w in ln for w in ("entry function", "registers", "stack frame"))] or None
-    ms = {src: {"B1": {B: [] for B in FLAT_BATCHES}, "B2": {B: [] for B in ROUGH_BATCHES}}
+    ms = {src: {name: {B: [] for B in batches} for name, _, batches, _ in runs}
           for src in sources}
-    bounds = {"B1": {}, "B2": {}}
-    for name, step, batches, org in (("B1", flat, FLAT_BATCHES, None),
-                                     ("B2", renv.decimated_step, ROUGH_BATCHES, origins)):
+    bounds = {name: {} for name, _, _, _ in runs}
+    for name, step, batches, org in runs:
         for B in batches:
             bms, by, _, _ = launch_bound(step, B)
             bounds[name][B] = {"bound_ms": bms, "bound_by": by}
-            st, ep, act = near_standing(step.model, B, B, dev, org)
+            st, ep, act = near_standing(step.model, B, B, dev, org, STAND_HEIGHT[args.robot])
             bufs = step.pack(st, act, ep)          # the kernel alone is timed
             for src in sources + sources[::-1]:
                 ms[src][name][B].append(cuda_ms(
                     lambda: step.run(bufs, lib=libs[src]), reps=args.reps, warmup=5))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "reps": args.reps, "bounds": bounds, "kernels": [
+    print(json.dumps({"card": smi, "robot": args.robot, "reps": args.reps, "bounds": bounds,
+                      "kernels": [
         {"source": src, "ptxas": ptxas[src], "shared_workspace": libs[src].shared_workspace,
          "ms_per_launch": ms[src]} for src in sources]}))
 

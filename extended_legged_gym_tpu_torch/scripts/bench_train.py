@@ -4,6 +4,11 @@
   scratch, by default ``anymal_c_flat`` at TRAIN_r5's (4096 envs, 24 steps
   per env, 5 x 4 minibatches, seed 2); ``--task anymal_c_rough --seed 1`` is
   TRAIN_ROUGH_r5's (the terrain curriculum, the [512, 256, 128] networks);
+  ``--task anymal_c_flat_sea`` runs the SEA actuator network (one torques-in
+  B1 launch per substep), ``--task elspider_air_flat --seed 1`` the hexapod;
+* ``ppo_recurrent``: the task's PPO with the recurrent policy
+  (``ActorCriticRecurrent``, an LSTM of the config's 512 units before each
+  MLP) and RND intrinsic rewards (``RND_CFG``);
 * ``estimator_ray``: the terrain estimator on the ray task under the closed
   loop's protocol (128 envs, levels <= 2), the committed ray policy driving;
 * ``estimator_flat``: the terrain estimator at the ESTIMATOR_r4 recipe (flat,
@@ -39,6 +44,17 @@ from extended_legged_gym_tpu_torch.scripts.eval_policy import card_name
 from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
 
 TEACHER = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
+# the RND settings of the recurrent recipe (the JAX runner's defaults: a
+# (256, 256) -> 64 target and predictor, Adam at 1e-3)
+RND_CFG = {"weight": 1.0, "learning_rate": 1e-3}
+
+
+def recurrent_train_cfg(train_cfg, rnn_type: str = "lstm"):
+    """``train_cfg`` with the recurrent policy and RND."""
+    train_cfg.runner.policy_class_name = "ActorCriticRecurrent"
+    train_cfg.policy.rnn_type = rnn_type
+    train_cfg.algorithm.rnd_cfg = dict(RND_CFG)
+    return train_cfg
 
 
 def top_device_kernels(prof, reps: int, n: int = 8):
@@ -84,18 +100,20 @@ def profile_iterations(iterate, warmup: int, iters: int, reps: int) -> dict:
                 top_device_kernels=top_device_kernels(prof, reps))
 
 
-def ppo_iteration(task: str, seed: int, device):
+def ppo_iteration(task: str, seed: int, device, recurrent: bool = False):
     args = get_args(argv=["--seed", str(seed), "--num_envs", "4096", "--device", str(device)])
     env, _ = task_registry.make_env(task, args)
     _, train_cfg = task_registry.get_cfgs(task)
     train_cfg.seed = seed
+    if recurrent:
+        recurrent_train_cfg(train_cfg)
     runner = OnPolicyRunner(env, train_cfg)
 
     def iterate():
         runner.train_iteration()
         return runner.last_times
 
-    return iterate, dict(task=task, seed=seed, envs=env.num_envs,
+    return iterate, dict(task=task, seed=seed, envs=env.num_envs, recurrent=recurrent,
                          steps_per_env=runner.num_steps_per_env)
 
 
@@ -137,8 +155,8 @@ def distill_iteration(device):
 
 def train_profile(warmup=3, iters=10, reps=2, device="cuda", task="anymal_c_flat", seed=2,
                   path="ppo"):
-    if path == "ppo":
-        iterate, info = ppo_iteration(task, seed, device)
+    if path in ("ppo", "ppo_recurrent"):
+        iterate, info = ppo_iteration(task, seed, device, recurrent=path == "ppo_recurrent")
     elif path == "distill":
         iterate, info = distill_iteration(device)
     else:
@@ -151,7 +169,7 @@ def train_profile(warmup=3, iters=10, reps=2, device="cuda", task="anymal_c_flat
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", default="ppo",
-                    choices=["ppo", "estimator_ray", "estimator_flat", "distill"])
+                    choices=["ppo", "ppo_recurrent", "estimator_ray", "estimator_flat", "distill"])
     ap.add_argument("--task", default="anymal_c_flat")
     ap.add_argument("--seed", type=int, default=2)
     ap.add_argument("--warmup", type=int, default=3)

@@ -3,22 +3,39 @@
 pushes, terrain levels frozen at spawn, the command pinned to ``--cmd`` m/s
 forward; ``warmup`` control steps, then ``steps`` recorded.  Prints one JSON
 line: achieved speed over command, upright mean, base height, falls
-(terminations that were not timeouts), plus the card.
+(terminations that were not timeouts), plus the card.  The command
+defaults to the task's JAX protocol: 0.5 m/s for ``elspider_air_flat``
+(``TRAIN_ELSPIDER_r4``), 0.7 m/s otherwise (``TRAIN_r4``'s ``sea_variant``
+for ``anymal_c_flat_sea``).  A recurrent policy keeps its carry per env and
+zeroes it where an env reset.
 
 Usage, from the repository root (on a CUDA card; ``--device cpu`` runs the
 plain physics on the CPU):
 
   python -m extended_legged_gym_tpu_torch.scripts.eval_policy \\
       [--task anymal_c_flat] [--ckpt path.pkl] [--cmd 0.7] [--envs 16] \\
-      [--steps 500] [--warmup 100] [--seed 0] [--device cuda]
+      [--steps 500] [--warmup 100] [--seed 0] [--device cuda] \\
+      [--reference TRAIN_r4.json:sea_variant] [--note TEXT] [--out FILE.json]
+
+``--reference`` names the JAX package's artifact of the same protocol (a
+``path:block`` for a block inside it), whose outcome is copied beside the
+port's; ``--out`` also writes the JSON to a file.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 
 import torch
+
+# the command of a task's JAX evaluation protocol where it is not 0.7 m/s
+TASK_CMD = {"elspider_air_flat": 0.5}
+
+
+def task_cmd(task: str) -> float:
+    return TASK_CMD.get(task, 0.7)
 
 
 def card_name(device) -> str:
@@ -44,7 +61,7 @@ def eval_env_cfg(env_cfg, envs: int, max_init_level=None):
 
 
 @torch.no_grad()
-def evaluate(task="anymal_c_flat", ckpt=None, cmd=0.7, envs=16, steps=500, warmup=100,
+def evaluate(task="anymal_c_flat", ckpt=None, cmd=None, envs=16, steps=500, warmup=100,
              max_init_level=None, seed=0, device="cuda") -> dict:
     from .. import robots  # noqa: F401  (populates the registry)
     from ..rl.runner import OnPolicyRunner
@@ -57,6 +74,8 @@ def evaluate(task="anymal_c_flat", ckpt=None, cmd=0.7, envs=16, steps=500, warmu
     ckpt = ckpt or get_load_path("logs/" + train_cfg.runner.experiment_name)
     payload = runner.load(ckpt)
     policy = runner.get_inference_policy()
+    reset = getattr(policy, "reset", None)          # a recurrent policy's carry
+    cmd = task_cmd(task) if cmd is None else cmd
 
     s = env.reset_all(seed=seed)
     pinned = torch.zeros_like(s.commands)
@@ -65,6 +84,8 @@ def evaluate(task="anymal_c_flat", ckpt=None, cmd=0.7, envs=16, steps=500, warmu
     rec = {k: [] for k in ("vx", "h", "up", "fell")}
     for i in range(warmup + steps):
         s = env.step(s, policy(s.obs)).replace(commands=pinned)
+        if reset is not None:
+            reset(s.reset_buf)
         if i >= warmup:
             rec["vx"].append(s.base_lin_vel[:, 0])
             rec["h"].append(s.phys.base_pos[:, 2])
@@ -84,20 +105,55 @@ def evaluate(task="anymal_c_flat", ckpt=None, cmd=0.7, envs=16, steps=500, warmu
     }
 
 
+def reference_outcome(path: str) -> dict:
+    """The outcome of the JAX package's artifact at ``path`` (or of the block
+    ``path:block`` inside it): its evaluation (one block, or the rough
+    artifact's two) and its training's final numbers."""
+    path, _, block = path.partition(":")
+    with open(path) as f:
+        ref = json.load(f)
+    if block:
+        ref = ref[block]
+    keys = ("achieved_over_command", "upright_mean", "base_height_mean", "falls")
+    out = {"source": os.path.basename(path) + (f":{block}" if block else ""),
+           "checkpoint": ref.get("checkpoint")}
+    for b in ("eval_full_difficulty", "eval_level_le2"):
+        if b in ref:
+            out[b] = {k: ref[b][k] for k in keys if k in ref[b]}
+    out.update({k: ref[k] for k in keys if k in ref})
+    out["training"] = {k: v for k, v in ref.get("training", {}).items()
+                       if k in ("iterations", "seed", "num_envs", "final_terrain_level_mean",
+                                "final_tracking_lin_vel_rew", "final_feet_slip_rew",
+                                "final_mean_episode_length", "nonfinite_skips")}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="anymal_c_flat")
     ap.add_argument("--ckpt", default=None)
-    ap.add_argument("--cmd", type=float, default=0.7)
+    ap.add_argument("--cmd", type=float, default=None,
+                    help="m/s forward (default: the task's protocol, 0.5 for ElSpider, else 0.7)")
     ap.add_argument("--envs", type=int, default=16)
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--warmup", type=int, default=100)
     ap.add_argument("--max-init-level", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reference", default=None)
+    ap.add_argument("--note", default=None)
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    print(json.dumps(evaluate(args.task, args.ckpt, args.cmd, args.envs, args.steps, args.warmup,
-                              args.max_init_level, args.seed, args.device)))
+    out = evaluate(args.task, args.ckpt, args.cmd, args.envs, args.steps, args.warmup,
+                   args.max_init_level, args.seed, args.device)
+    if args.reference:
+        out["reference"] = reference_outcome(args.reference)
+    if args.note:
+        out["note"] = args.note
+    print(json.dumps(out))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":

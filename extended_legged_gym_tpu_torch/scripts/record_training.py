@@ -11,13 +11,15 @@ the iteration the reward stage advanced, non-finite skips, wall time and
 seconds per iteration split into collection and update, on a generated
 terrain the final mean terrain level, with the card.  ``--reference`` names
 the JAX package's artifact of the same recipe, whose outcome is copied beside
-the port's.
+the port's; ``--jax-ckpt`` also evaluates the JAX package's checkpoint in
+the port under the same protocol (flat tasks).
 
 Usage, from the directory that holds ``logs/`` (on a CUDA card):
 
   python -m extended_legged_gym_tpu_torch.scripts.record_training \\
       --run logs/flat_anymal_c_torch/<run> [--run <resumed run> ...] \\
       [--task anymal_c_flat] [--seed 2] [--reference TRAIN_r5.json] \\
+      [--jax-ckpt logs/<experiment>/<run>/model_final.pkl] \\
       [--note TEXT] [--out TRAIN_torch_r01.json]
 
 Several ``--run`` are the segments of one training resumed with
@@ -29,7 +31,7 @@ import argparse
 import json
 import os
 
-from .eval_policy import card_name, evaluate
+from .eval_policy import card_name, evaluate, reference_outcome, task_cmd
 from .eval_rough import run_eval
 
 
@@ -61,6 +63,8 @@ def training_summary(runs, num_envs: int, seed: int) -> dict:
         "runs": list(runs), "segments": len(runs), "num_envs": num_envs, "seed": seed,
         "iterations": int(rows[-1]["step"]),
         "final_tracking_lin_vel_rew": last["episode/rew_tracking_lin_vel"],
+        **({"final_feet_slip_rew": last["episode/rew_feet_slip"]}
+           if "episode/rew_feet_slip" in last else {}),
         "final_mean_episode_length": last["mean_episode_length"],
         "final_mean_reward": last["mean_reward"], **levels,
         "final_reward_stage": rows[-1]["reward_stage"],
@@ -79,39 +83,24 @@ def training_summary(runs, num_envs: int, seed: int) -> dict:
     }
 
 
-def reference_outcome(path: str) -> dict:
-    """The outcome of the JAX package's artifact at ``path``: its evaluation
-    (one block, or the rough artifact's two) and its training's final numbers."""
-    with open(path) as f:
-        ref = json.load(f)
-    keys = ("achieved_over_command", "upright_mean", "base_height_mean", "falls")
-    out = {"source": os.path.basename(path), "checkpoint": ref.get("checkpoint")}
-    for block in ("eval_full_difficulty", "eval_level_le2"):
-        if block in ref:
-            out[block] = {k: ref[block][k] for k in keys if k in ref[block]}
-    out.update({k: ref[k] for k in keys if k in ref})
-    out["training"] = {k: v for k, v in ref.get("training", {}).items()
-                       if k in ("iterations", "seed", "num_envs", "final_terrain_level_mean",
-                                "final_tracking_lin_vel_rew", "final_mean_episode_length",
-                                "nonfinite_skips")}
-    return out
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--run", action="append", required=True)
     ap.add_argument("--task", default="anymal_c_flat")
     ap.add_argument("--seed", type=int, default=2)
     ap.add_argument("--num-envs", type=int, default=4096)
-    ap.add_argument("--cmd", type=float, default=0.7)
+    ap.add_argument("--cmd", type=float, default=None,
+                    help="m/s forward (default: the task's protocol, 0.5 for ElSpider, else 0.7)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reference", default=None)
+    ap.add_argument("--jax-ckpt", default=None)
     ap.add_argument("--note", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     from ..utils.task_registry import task_registry
 
     ckpt = os.path.join(args.run[-1], "model_final.pkl")
+    args.cmd = task_cmd(args.task) if args.cmd is None else args.cmd
     env_cfg, _ = task_registry.get_cfgs(args.task)
     if env_cfg.terrain.mesh_type in ("heightfield", "trimesh"):
         kw = dict(task=args.task, device=args.device)
@@ -123,6 +112,9 @@ def main(argv=None):
         out = evaluate(args.task, ckpt, args.cmd, envs=16, steps=500, warmup=100,
                        device=args.device)
     out["training"] = training_summary(args.run, args.num_envs, args.seed)
+    if args.jax_ckpt:
+        out["jax_checkpoint_in_port"] = evaluate(args.task, args.jax_ckpt, args.cmd, envs=16,
+                                                 steps=500, warmup=100, device=args.device)
     if args.reference:
         out["reference"] = reference_outcome(args.reference)
     if args.note:

@@ -1,6 +1,7 @@
 """The fused CUDA physics kernels (B1 flat, B2 heightfield) and their V-control
 routes (one substep, torques passed in) against their plain version, on the
-card; two launches on the same inputs agree bit for bit.
+card; two launches on the same inputs agree bit for bit.  B1 is also held
+with the ElSpider Air hexapod's tables.
 
 Needs a CUDA card and nvcc; skips without a card.  Imports no JAX, so it runs
 on a machine without it:
@@ -133,3 +134,32 @@ def test_two_launches_are_bit_identical(setup, rough_setup):
         assert torch.equal(a[1], b[1])
         for k in ("geom_forces", "foot_pos", "foot_vel"):
             assert torch.equal(getattr(a[2], k), getattr(b[2], k)), k
+
+
+def test_elspider_kernel_matches_plain_on_card():
+    """B1 with the hexapod's tables (19 bodies, 18 joints, 46 geoms, 6 feet)
+    at 300 envs from near-standing states: one launch against the plain
+    version in float64 (whose float32 rounding alone reaches most of the
+    joint-velocity tolerance on the hexapod's light legs), then two launches
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, elspider_step,
+                                                                    near_standing)
+
+    step = elspider_step(torch.device("cuda"))
+    st, ep, act = near_standing(step.model, 300, 0, torch.device("cuda"),
+                                height=STAND_HEIGHT["elspider_air"])
+    before = pk.DecimatedEnvStep.launches
+    sk, tk, rk = step(st, act, ep)
+    assert pk.DecimatedEnvStep.launches == before + 1
+    sp, tp, rp = step.plain(st, act, ep, dtype=torch.float64)
+    torch.cuda.synchronize()
+    _assert_close(sk, rk, sp, rp)
+    # the last substep's torques follow joint_pos and joint_vel through the
+    # gains: 80 x 5e-4 + 2 x 5e-2
+    torch.testing.assert_close(tk, tp, atol=0.14, rtol=0)
+    again = step.launch(st, act, ep)
+    torch.cuda.synchronize()
+    for k in TOLS:
+        assert torch.equal(getattr(sk, k), getattr(again[0], k)), k

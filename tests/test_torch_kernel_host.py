@@ -11,7 +11,10 @@ host build runs the warp-cooperative body itself over a host array that
 stands for the env's shared-memory workspace (filled with NaN first, so a
 read of a word no phase wrote shows).  Running the lanes in reverse order
 must give the same bits: no lane may read what another writes in the same
-phase.  The harness feeds the body the wrapper's own tables and SoA layout."""
+phase.  The harness feeds the body the wrapper's own tables and SoA layout.
+Each check runs with ANYmal-C's tables (13 bodies, 12 joints, 36 spheres, 4
+feet) and B1's with the ElSpider Air hexapod's (19 bodies, 18 joints, 6
+children at the base, 46 spheres in two 32-lane passes, 6 feet)."""
 import ctypes
 import shutil
 import subprocess
@@ -24,7 +27,8 @@ from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
 from extended_legged_gym_tpu_torch.physics import EnvPhysParams, initial_state, load_model
 from extended_legged_gym_tpu_torch.physics.engine import default_sim_params
 from extended_legged_gym_tpu_torch.envs.legged_robot_config import TerrainCfg
-from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
+from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, elspider_step,
+                                                                near_standing, rough_env)
 from extended_legged_gym_tpu_torch.terrain import Terrain, flat_terrain, from_numpy, sample_height
 
 MODEL = "extended_legged_gym_tpu/robots/data/anymal_c.json"
@@ -93,7 +97,7 @@ def host_lib(tmp_path_factory):
 
 def _run_host(h, step, st, act, ep, lanes_reversed=False):
     """The wrapper's SoA packing around the host-compiled kernel body."""
-    B, nj, ng, nf = st.base_pos.shape[0], 12, 36, step.nf
+    B, nj, ng, nf = st.base_pos.shape[0], step.model.nj, step.model.ng, step.nf
     state = torch.cat([st.base_pos.T, st.base_quat.T, st.joint_pos.T, st.base_lin_vel.T,
                        st.base_ang_vel.T, st.joint_vel.T, st.contact_anchor.reshape(B, -1).T]).contiguous()
     a = act.T.contiguous()
@@ -106,9 +110,10 @@ def _run_host(h, step, st, act, ep, lanes_reversed=False):
                 out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fp.data_ptr(), fv.data_ptr(), B,
                 int(step.rough), int(lanes_reversed))
     o = out.T
-    new = st.replace(base_pos=o[:, :3], base_quat=o[:, 3:7], joint_pos=o[:, 7:19],
-                     base_lin_vel=o[:, 19:22], base_ang_vel=o[:, 22:25], joint_vel=o[:, 25:37],
-                     contact_anchor=o[:, 37:].reshape(B, ng, 2))
+    new = st.replace(base_pos=o[:, :3], base_quat=o[:, 3:7], joint_pos=o[:, 7:7 + nj],
+                     base_lin_vel=o[:, 7 + nj:10 + nj], base_ang_vel=o[:, 10 + nj:13 + nj],
+                     joint_vel=o[:, 13 + nj:13 + 2 * nj],
+                     contact_anchor=o[:, 13 + 2 * nj:].reshape(B, ng, 2))
     return new, tau.T, gf.T.reshape(B, ng, 3), fp.T.reshape(B, nf, 3), fv.T.reshape(B, nf, 3)
 
 
@@ -138,6 +143,60 @@ def test_kernel_body_matches_plain(host_lib, control_type):
     np.testing.assert_allclose(fp.numpy(), rep.foot_pos.numpy(), atol=1e-4)
     np.testing.assert_allclose(fv.numpy(), rep.foot_vel.numpy(), atol=1e-2)
     np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
+
+
+def _assert_body_matches_plain(host_lib, step, st, act, ep):
+    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
+    ref, tau_r, rep = step.plain(st, act, ep)
+    for name, atol in TOLS.items():
+        np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
+                                   atol=atol, err_msg=name)
+    np.testing.assert_allclose(tau.numpy(), tau_r.numpy(), atol=1e-2)
+    np.testing.assert_allclose(fp.numpy(), rep.foot_pos.numpy(), atol=1e-4)
+    np.testing.assert_allclose(fv.numpy(), rep.foot_vel.numpy(), atol=1e-2)
+    np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
+    return rep
+
+
+@pytest.mark.parametrize("control_type", ["P", "T"])
+def test_elspider_kernel_body_matches_plain(host_lib, control_type):
+    """B1's per-env body with the hexapod's tables (the elspider_air_flat
+    env's fused step; its 18 joints, 19-body tree with six legs on the base
+    and 46 geoms) against the plain version from near-standing states."""
+    step = elspider_step("cpu")
+    if control_type == "T":
+        step = pk.make_decimated_env_step(step.model, step.sp, step.terrain, 4,
+                                          step._host["p"], step._host["d"], step._host["ddp"],
+                                          0.5, control_type="T")
+    B = 64
+    st, ep, act = near_standing(step.model, B, 0, "cpu", height=STAND_HEIGHT["elspider_air"])
+    if control_type == "T":
+        act = 10.0 * act
+    rep = _assert_body_matches_plain(host_lib, step, st, act, ep)
+    assert float(rep.geom_forces[..., 2].sum()) > 50.0 * B      # the robots stand on the ground
+
+
+def test_elspider_kernel_body_is_lane_order_free(host_lib):
+    """As test_kernel_body_is_lane_order_free, with the hexapod's tables."""
+    step = elspider_step("cpu")
+    st, ep, act = near_standing(step.model, 16, 3, "cpu", height=STAND_HEIGHT["elspider_air"])
+    fwd = _run_host(host_lib, step, st, act, ep)
+    rev = _run_host(host_lib, step, st, act, ep, lanes_reversed=True)
+    for a, b in zip(fwd[1:], rev[1:]):
+        assert torch.equal(a, b)
+    for name in TOLS:
+        assert torch.equal(getattr(fwd[0], name), getattr(rev[0], name)), name
+
+
+def test_elspider_workspace_size_matches_source(host_lib):
+    """The hexapod's workspace: the wrapper's formula is the CUDA source's
+    layout, and a block of 4 envs fits (69628 bytes: 3 blocks per SM)."""
+    nb, nj, ng, nf = 19, 18, 46, 6
+    for rough in (0, 1):
+        assert 4 * pk.workspace_words(nb, nj, ng, nf, bool(rough)) == \
+            host_lib.physics_workspace_bytes(nb, nj, ng, nf, rough)
+    assert pk.block_shared_bytes(nb, nj, ng, nf) == 69628
+    assert elspider_step("cpu").ws_bytes == 4 * pk.workspace_words(nb, nj, ng, nf)
 
 
 def _slope():

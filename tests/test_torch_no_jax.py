@@ -9,7 +9,9 @@ optax objects) load, the flat one into the port's runner and the ray one into
 a policy that acts on the ray task's 267-dim observation; the committed JAX
 terrain estimator loads into the port's estimator and predicts the ray task's
 32 distances, and the warm-start checkpoint's actor loads into a
-student-teacher pair as its teacher."""
+student-teacher pair as its teacher; the actuator network, RND and the
+recurrent policy modules import, the committed SEA and ElSpider checkpoints
+load into their tasks' runners, and the SEA env steps."""
 import os
 import subprocess
 import sys
@@ -24,6 +26,8 @@ ROUGH_CKPT = "logs/rough_anymal_c/Aug21_13-00-24_r5_rough3/model_final.pkl"
 FLAT_CKPT = "logs/flat_anymal_c/Aug21_16-29-23_r5_scratch/model_final.pkl"
 RAY_CKPT = "logs/rough_raycast_anymal_c/Aug21_13-41-24_r5_rayc/model_final.pkl"
 ESTIMATOR = "logs/terrain_estimator/anymal_c_rough_raycast/estimator_final.pkl"
+SEA_CKPT = "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl"
+ELSPIDER_CKPT = "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl"
 
 SCRIPT = textwrap.dedent(f"""
     import importlib, importlib.abc, pkgutil, sys
@@ -54,7 +58,9 @@ SCRIPT = textwrap.dedent(f"""
               "models.depth_backbone", "models.terrain_estimator", "models.student_teacher",
               "rl.terrain_estimator_runner", "rl.distillation", "rl.distillation_runner",
               "scripts.terrain_est_train", "scripts.terrain_est_play",
-              "scripts.estimator_closed_loop", "scripts.evidence_artifacts"):
+              "scripts.estimator_closed_loop", "scripts.evidence_artifacts",
+              "models.actuator_net", "models.rnd", "robots.elspider_air", "scripts.bench_train",
+              "scripts.bench_kernel"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -63,6 +69,13 @@ SCRIPT = textwrap.dedent(f"""
     runner, _ = task_registry.make_alg_runner(env, "anymal_c_flat", log_root="unused")
     assert runner.load({FLAT_CKPT!r})["iteration"] == 2000
     import torch
+    for task, ckpt in (("anymal_c_flat_sea", {SEA_CKPT!r}), ("elspider_air_flat", {ELSPIDER_CKPT!r})):
+        env, _ = task_registry.make_env(task, get_args(argv=["--num_envs", "2"]), device="cpu")
+        runner, _ = task_registry.make_alg_runner(env, task, log_root="unused")
+        runner.load(ckpt)
+        s = env.step(env.reset_all(seed=0), runner.get_inference_policy()(env.reset_all(seed=0).obs))
+        assert bool(torch.isfinite(s.obs).all()), task
+    assert env.num_actions == 18
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     from extended_legged_gym_tpu_torch.models.networks import read_checkpoint
@@ -91,7 +104,7 @@ def test_port_imports_and_loads_checkpoint_without_jax():
     assert "actor (128, 48)" in proc.stdout and "rough actions (1, 12)" in proc.stdout
     assert "ray actions (1, 12)" in proc.stdout and "estimated rays (2, 32)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 62
+    assert n >= 65
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -24,7 +24,18 @@ DISTILL_NATIVE_torch_r01.json: the DISTILL_NATIVE_r5 recipe.  Each carries its
 recipe, the card line, finite values and the JAX artifact's numbers, and
 meets the fault criteria set before the runs: a closed-loop RMSE of at most
 1.5 m with the JAX estimator, a student of at least 0.8 of command with at
-most 5 falls."""
+most 5 falls.
+
+TRAIN_SEA_torch_r01.json: the committed JAX SEA checkpoint evaluated in the
+port at TRAIN_r4.json's sea_variant protocol; TRAIN_ELSPIDER_torch_r01.json:
+the committed JAX ElSpider checkpoint evaluated in the port and the port's
+own elspider_air_flat training at TRAIN_ELSPIDER_r4's recipe.  Each carries
+its protocol, the card line and the JAX numbers, and meets the fault
+criteria set before the runs: SEA at least 0.6 of command with at most 2
+falls in 16 envs; ElSpider at least 0.85 of command with at most 1.6 falls
+per 16 envs (tests/test_training_artifact.py:88-90's bars), for both
+checkpoints.  The port's ElSpider checkpoint must act as the JAX network
+does with its parameters (1e-5)."""
 import json
 import os
 import pickle
@@ -260,3 +271,57 @@ def test_distillation_evidence_meets_its_fault_criteria():
     for k in ("teacher", "iterations", "num_envs", "behavior_loss_first", "behavior_loss_final",
               "student_eval"):
         assert art["reference"][k] == r5[k], k
+
+
+def _load(name):
+    with open(os.path.join(ROOT, name)) as f:
+        return json.load(f)
+
+
+def _protocol(block, cmd):
+    assert (block["n_envs"], block["n_steps"], block["command_mps"]) == (16, 500, cmd), block
+    assert block["card"].startswith("NVIDIA H100"), block
+    assert all(np.isfinite(block[k]) for k in ("achieved_over_command", "upright_mean",
+                                                "base_height_mean", "falls")), block
+
+
+def test_sea_artifact_meets_its_fault_criteria():
+    art = _load("TRAIN_SEA_torch_r01.json")
+    _protocol(art, 0.7)
+    ref = art["reference"]
+    assert ref["source"] == "TRAIN_r4.json:sea_variant" and ref["checkpoint"] == art["checkpoint"]
+    assert art["achieved_over_command"] >= 0.6 and art["falls"] <= 2, art
+    assert abs(art["achieved_over_command"] - ref["achieved_over_command"]) <= 0.05, art
+
+
+def test_elspider_artifact_meets_its_fault_criteria():
+    art = _load("TRAIN_ELSPIDER_torch_r01.json")
+    for block in (art, art["jax_checkpoint_in_port"]):
+        _protocol(block, 0.5)
+        assert block["achieved_over_command"] >= 0.85 and block["falls"] <= 1.6, block
+    ref, tr = art["reference"], art["training"]
+    assert ref["source"] == "TRAIN_ELSPIDER_r4.json"
+    assert art["jax_checkpoint_in_port"]["checkpoint"] == ref["checkpoint"]
+    assert (tr["num_envs"], tr["seed"], tr["iterations"], tr["segments"]) == (4096, 1, 1500, 1)
+    assert tr["nonfinite_skips"] == 0 and tr["final_reward_stage"] == 1.0
+    assert {"final_tracking_lin_vel_rew", "final_feet_slip_rew"} <= set(ref["training"])
+    assert np.isfinite(tr["final_feet_slip_rew"]) and tr["final_tracking_lin_vel_rew"] > 0.8
+
+
+def test_elspider_checkpoint_acts_as_the_jax_network():
+    from extended_legged_gym_tpu_torch.robots.elspider_air import (ElSpider,
+                                                                   elspider_air_flat_cfg,
+                                                                   elspider_air_ppo_cfg)
+
+    ckpt = os.path.join(ROOT, _load("TRAIN_ELSPIDER_torch_r01.json")["checkpoint"])
+    cfg = elspider_air_flat_cfg()
+    cfg.env.num_envs = 2
+    runner = OnPolicyRunner(ElSpider(cfg, device="cpu"), elspider_air_ppo_cfg())
+    assert runner.load(ckpt)["iteration"] == 1500
+    with open(ckpt, "rb") as f:
+        params = pickle.load(f)["params"]
+    jnet = JActorCritic(num_actions=18)
+    obs = np.random.default_rng(4).standard_normal((32, 66)).astype(np.float32)
+    want = np.asarray(jnet.apply(params, jnp.asarray(obs), method=jnet.act_inference))
+    got = runner.get_inference_policy()(torch.as_tensor(obs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
