@@ -97,17 +97,36 @@ Phases (each prints its seconds; the run fails rather than overrun):
    and RND losses, policy and predictor changed); the recurrent inference
    policy must change its action with its carry, give the first action
    again after a reset, and round-trip through a checkpoint;
-17. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+17. the fixed-base regime (the kernels' TI_FIX flag: zero base
+   acceleration, no base solve) with the Franka arm's tables (8 bodies, 7
+   joints, one sphere on the base, no feet) against its plain version: one
+   control step from states at rest with random actions at FRANKA_B (8, the
+   batch rollout's main envs, and 1024, franka_cfg's fleet and 8 x 128
+   rollout samples), the base unchanged bit for bit after one step and
+   after 25, the 25-step drift at 8 reported (drift_report: the arm's
+   2.2-2.6 rad/s limits clamp often), two launches bit for bit at 1024;
+18. Franka paths: the franka task through the registry for FRANKA_ITERS
+   PPO iterations at 1024 envs (the fixed-base route exactly FRANKA_ITERS x
+   24, B1 and B2 0; phase 8's checks), then franka_batch_rollout's
+   rollout_batch at 8 main envs x 128 samples x H=16 (exactly 16 launches,
+   finite rewards);
+19. CyberDog2 on B1: its tables (13 bodies, 12 joints, 37 spheres, 4 feet)
+   against the float64 plain version at the walk family's 4096 envs, two
+   launches bit for bit; CYBER_ITERS iterations of cyber2_walk training at
+   4096 (B1 exactly CYBER_ITERS x 24, phase 8's checks);
+20. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-18. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+21. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-19. the kernel line (JSON) and the result line.  B1's entry counts its
+22. the kernel line (JSON) and the result line.  B1's entry counts its
    launches on the MPC path, the flat training path, the distillation path
    and the RL-extension paths; B1's entry on the hexapod's tables its
    launches on the ElSpider path; the SEA route's its launches on the SEA
    training path; B2's entry on the rough path, the ray path, the rough
-   training path and the estimator path; each carries its times at the
-   training fleet's 4096.
+   training path and the estimator path; the fixed-base regime's on the
+   Franka training and rollout paths, with its times at 1024; B1's entry
+   on CyberDog2's tables on the CyberDog2 training path; the others carry
+   their times at the training fleet's 4096.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -173,6 +192,14 @@ DISTILL_ENVS, DISTILL_ITERS = 256, 3
 # training iterations at the fleet
 ELSPIDER_B, ELSPIDER_ITERS = (16, 4096), 3
 SEA_ITERS, EXT_ITERS = 3, 2
+# Franka (the fixed-base regime): B at franka_batch_rollout's 8 main envs
+# and at franka_cfg's fleet of 1024 (also 8 main envs x 128 rollout
+# samples); training iterations at that fleet; the rollout batch's main
+# envs, samples and horizon
+FRANKA_B, FRANKA_FLEET, FRANKA_ITERS = (8, 1024), 1024, 3
+FRANKA_E, FRANKA_S, FRANKA_H = 8, 128, 16
+# CyberDog2 on B1: the walk family's fleet, its training iterations
+CYBER_B, CYBER_ITERS = 4096, 2
 ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
 SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
@@ -217,7 +244,7 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
     torch.cuda.synchronize()
     errs = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item()
             for k in ONE_STEP_ATOL if k != "foot_pos"}
-    errs["foot_pos"] = (rk.foot_pos - rp.foot_pos).abs().max().item()
+    errs["foot_pos"] = maxabs(rk.foot_pos - rp.foot_pos)
     errs["tau_last"] = (tk - tp).abs().max().item()
     fz_k, fz_p = rk.geom_forces[..., 2].sum(1), rp.geom_forces[..., 2].sum(1)
     fz_ok = bool(((fz_k - fz_p).abs() <= 30.0 + 0.2 * fz_p.abs()).all())
@@ -241,6 +268,12 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
         f"packing), plain {pms:.3f} ms, bound {bound_ms * 1e3:.3f} us ({flops:.3g} flop, "
         f"{nbytes:.3g} bytes)")
     return max(errs[k] for k in ONE_STEP_ATOL)
+
+
+def maxabs(x) -> float:
+    """The largest magnitude in ``x`` (0 for an empty tensor: a model
+    without feet reports none)."""
+    return x.abs().max().item() if x.numel() else 0.0
 
 
 def bit_identical(name, step, B, states):
@@ -318,12 +351,15 @@ def drift_check(name, step, B, states):
 
 
 def launch_counts():
-    """The launch counters of the fused control step (B1, B2) and of the
-    torques-in route (EnvStep: V control and the actuator network)."""
+    """The launch counters of the fused control step (B1, B2, either with a
+    fixed base) and of the torques-in route (EnvStep: V control and the
+    actuator network)."""
     from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
 
     return {"B1": pk.DecimatedEnvStep.launches, "B2": pk.DecimatedEnvStep.rough_launches,
-            "B1 torques-in": pk.EnvStep.launches, "B2 torques-in": pk.EnvStep.rough_launches}
+            "fixed": pk.DecimatedEnvStep.fixed_launches,
+            "B1 torques-in": pk.EnvStep.launches, "B2 torques-in": pk.EnvStep.rough_launches,
+            "fixed torques-in": pk.EnvStep.fixed_launches}
 
 
 def zero_launch_counts():
@@ -331,16 +367,18 @@ def zero_launch_counts():
 
     pk.DecimatedEnvStep.launches = pk.DecimatedEnvStep.rough_launches = 0
     pk.EnvStep.launches = pk.EnvStep.rough_launches = 0
+    pk.DecimatedEnvStep.fixed_launches = pk.EnvStep.fixed_launches = 0
 
 
-def training_path(dev, task, seed, iters):
-    """``iters`` iterations of PPO on ``task`` at its training recipe (4096
-    envs, from scratch) through the task registry and OnPolicyRunner.learn,
-    then a save/load round trip.  On a generated terrain the curriculum must
-    have moved some env's level, within [0, num_rows).  Returns the launches
-    of the physics route of the task (B1 flat, B2 rough; their torques-in
-    route, one launch per substep, with the actuator network) in the learn
-    call; no other route may launch."""
+def training_path(dev, task, seed, iters, envs=FLEET):
+    """``iters`` iterations of PPO on ``task`` at its training recipe
+    (``envs`` envs, from scratch) through the task registry and
+    OnPolicyRunner.learn, then a save/load round trip.  On a generated
+    terrain the curriculum must have moved some env's level, within [0,
+    num_rows).  Returns the launches of the physics route of the task (B1
+    flat, B2 rough, "fixed" on a fixed base; their torques-in route, one
+    launch per substep, with the actuator network) in the learn call; no
+    other route may launch."""
     import tempfile
 
     import torch
@@ -349,11 +387,12 @@ def training_path(dev, task, seed, iters):
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
 
-    args = get_args(argv=["--task", task, "--seed", str(seed), "--num_envs", str(FLEET),
+    args = get_args(argv=["--task", task, "--seed", str(seed), "--num_envs", str(envs),
                           "--max_iterations", str(iters), "--device", str(dev)])
     env, _ = task_registry.make_env(args.task, args)
     rough = env.custom_origins
-    ours = ("B2" if rough else "B1") + (" torques-in" if env.substep is not None else "")
+    ours = (("fixed" if env.model.fix_base else "B2" if rough else "B1")
+            + (" torques-in" if env.substep is not None else ""))
     with tempfile.TemporaryDirectory() as root:
         runner, train_cfg = task_registry.make_alg_runner(env, args.task, args, log_root=root)
         net = runner.network
@@ -378,7 +417,7 @@ def training_path(dev, task, seed, iters):
             f"{others}; losses " + " ".join(f"{r['loss']:.4g}" for r in rows)
             + "; nonfinite_skips " + " ".join(f"{r['nonfinite_skips']:g}" for r in rows)
             + f"; learning rate {rows[-1]['learning_rate']:.3g}; reward stage "
-            f"{rows[-1]['reward_stage']:g}")
+            f"{rows[-1].get('reward_stage', 0):g}")
         if counts[ours] != want or any(others.values()):
             fail(f"the {task} training path launched {ours} {counts[ours]} times (want {want}) "
                  f"and others {others} (want 0)")
@@ -723,6 +762,125 @@ def sea_path(dev, stats):
     return err, launches
 
 
+def base_unchanged(name, before, after):
+    """A fixed base's pose and velocities must come out of the kernel bit for
+    bit as they went in (states at rest, the identity orientation)."""
+    import torch
+
+    bad = [k for k in ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel")
+           if not torch.equal(getattr(before, k), getattr(after, k))]
+    log(f"{name}: fixed base " + ("unchanged bit for bit" if not bad else f"moved in {bad}"))
+    if bad:
+        fail(f"{name}: the fixed base moved ({bad})")
+
+
+def franka_path(dev, stats):
+    """The fixed-base regime with the Franka arm's tables (8 bodies, 7 joints,
+    one sphere on the base, no feet) against plain: one control step at
+    FRANKA_B from states at rest with random actions, the 25-step drift at 8
+    reported (drift_report: the arm's 2.2-2.6 rad/s velocity limits clamp
+    often), two launches bit for bit at the fleet, the base unchanged bit
+    for bit after one step and after the drift (ms, plain ms and bound into
+    ``stats``); then the ``franka`` task through the registry for
+    FRANKA_ITERS iterations at its fleet (the fixed-base route exactly
+    FRANKA_ITERS x 24, B1 and B2 0) and ``franka_batch_rollout``'s
+    ``rollout_batch`` at FRANKA_E main envs x FRANKA_S samples x FRANKA_H
+    steps (exactly FRANKA_H launches, finite rewards).  Returns the largest
+    difference against plain and the launches of both paths."""
+    import torch
+
+    from extended_legged_gym_tpu_torch import robots  # noqa: F401
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import at_rest, franka_step
+    from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
+
+    t0 = time.perf_counter()
+    step = franka_step(dev)
+    m = step.model
+    log(f"fixed-base regime, Franka (nb={m.nb} nj={m.nj} ng={m.ng} nf={step.nf}, fix_base="
+        f"{m.fix_base}) block of {pk.ENVS_PER_BLOCK} envs: "
+        f"{pk.block_shared_bytes(m.nb, m.nj, m.ng, step.nf)} bytes of shared memory")
+    err = max(compare_one_step("fixed-base", step, B, at_rest(m, B, B, dev), stats)
+              for B in FRANKA_B)
+    st, ep, act = at_rest(m, FRANKA_FLEET, 4, dev)
+    base_unchanged("fixed-base one step", st, step.launch(st, act, ep)[0])
+    st, ep, act = at_rest(m, 8, 7, dev)
+    drift_report("fixed-base", step, 8, (st, ep, act))
+    sk = st
+    for _ in range(25):
+        sk = step.launch(sk, 0.2 * act, ep)[0]
+    base_unchanged("fixed-base 25 control steps", st, sk)
+    bit_identical("fixed-base", step, FRANKA_FLEET, at_rest(m, FRANKA_FLEET, 3, dev))
+    log("no single PyTorch call computes this step; library_ms is null")
+    phase_done("fixed-base regime vs plain", t0)
+
+    t0 = time.perf_counter()
+    train = training_path(dev, "franka", 1, FRANKA_ITERS, envs=FRANKA_FLEET)
+    phase_done("Franka training path", t0)
+
+    t0 = time.perf_counter()
+    cfg, _ = task_registry.get_cfgs("franka_batch_rollout")
+    env, _ = task_registry.make_env("franka_batch_rollout", env_cfg=cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        state = env.reset_all(seed=0)
+        us = 0.5 * torch.randn(FRANKA_E, FRANKA_S, FRANKA_H, env.num_actions, device=dev,
+                               generator=gen)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t1 = time.perf_counter()
+        rew = env.rollout_batch(state, us)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+    counts = launch_counts()
+    others = {k: v for k, v in counts.items() if k != "fixed"}
+    log(f"franka_batch_rollout: rollout_batch {env.num_envs} main envs x {FRANKA_S} samples x "
+        f"H={FRANKA_H}: {ms:.1f} ms, fixed-base launches={counts['fixed']} (want {FRANKA_H}), "
+        f"others {others}; rewards {tuple(rew.shape)} mean {rew.mean().item():.4g}")
+    if counts["fixed"] != FRANKA_H or any(others.values()):
+        fail(f"the Franka rollout launched the fixed-base route {counts['fixed']} times "
+             f"(want {FRANKA_H}) and others {others}")
+    if env.num_envs != FRANKA_E or tuple(rew.shape) != (FRANKA_E, FRANKA_S, FRANKA_H):
+        fail(f"the Franka rollout's rewards have shape {tuple(rew.shape)}")
+    if not bool(torch.isfinite(rew).all()):
+        fail("non-finite rewards on the Franka rollout")
+    phase_done("Franka rollout", t0)
+    return err, train + counts["fixed"]
+
+
+def cyberdog2_path(dev, stats):
+    """B1 with CyberDog2's tables (13 bodies, 12 joints, 37 spheres, 4 feet)
+    against plain (float64, as for the hexapod's light legs) at the walk
+    family's fleet from near-standing states, two launches bit for bit (ms,
+    plain ms and bound into ``stats``); then CYBER_ITERS iterations of
+    ``cyber2_walk`` training at the fleet (B1 exactly CYBER_ITERS x 24).
+    Returns the largest difference against plain and B1's launches."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, near_standing,
+                                                                    task_step)
+
+    t0 = time.perf_counter()
+    step = task_step("cyber2_walk", dev)
+    m, h = step.model, STAND_HEIGHT["cyberdog2"]
+    log(f"CyberDog2 B1 (nb={m.nb} nj={m.nj} ng={m.ng} nf={step.nf}) block of "
+        f"{pk.ENVS_PER_BLOCK} envs: {pk.block_shared_bytes(m.nb, m.nj, m.ng, step.nf)} bytes of "
+        f"shared memory")
+    states = near_standing(m, CYBER_B, 5, dev, height=h)
+    err = compare_one_step("CyberDog2 B1", step, CYBER_B, states, stats, torch.float64)
+    st, ep, act = states
+    fz = step.plain(st, act, ep)[2].geom_forces[..., 2].sum(1)
+    log(f"CyberDog2: {int((fz > 0).sum())} of {CYBER_B} robots touch the ground")
+    bit_identical("CyberDog2 B1", step, CYBER_B, near_standing(m, CYBER_B, 3, dev, height=h))
+    phase_done("CyberDog2 B1 vs plain", t0)
+
+    t0 = time.perf_counter()
+    train = training_path(dev, "cyber2_walk", 1, CYBER_ITERS)
+    phase_done("CyberDog2 training path", t0)
+    return err, train
+
+
 def extensions_path(dev):
     """The RL extensions on anymal_c_flat at the fleet: recurrent PPO (an
     LSTM of 512 before each MLP) with RND for EXT_ITERS iterations (B1
@@ -1034,7 +1192,15 @@ def main():
     sea_err, sea_launches = sea_path(dev, sea_stats)
     ext_launches = extensions_path(dev)
 
-    # ---------------- 17. flat evaluation ----------------
+    # ---------------- 17-18. the fixed-base regime: Franka ----------------
+    franka_stats = {}
+    franka_err, franka_launches = franka_path(dev, franka_stats)
+
+    # ---------------- 19. CyberDog2 on B1 ----------------
+    cyber_stats = {}
+    cyber_err, cyber_launches = cyberdog2_path(dev, cyber_stats)
+
+    # ---------------- 20. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -1047,7 +1213,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 18. timing ----------------
+    # ---------------- 21. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -1057,7 +1223,7 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 19. result ----------------
+    # ---------------- 22. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
@@ -1068,6 +1234,10 @@ def main():
             ("flat_decimated_physics_step_elspider_air", elspider_launches, elspider_err,
              elspider_stats[4096]),
             ("flat_physics_substep_sea_route", sea_launches, sea_err, sea_stats[FLEET]),
+            ("fixed_base_decimated_physics_step_franka", franka_launches, franka_err,
+             franka_stats[FRANKA_FLEET]),
+            ("flat_decimated_physics_step_cyberdog2", cyber_launches, cyber_err,
+             cyber_stats[CYBER_B]),
             ("rough_decimated_physics_step",
              rough_launches + ray_launches + rough_train_launches + est_launches, rough_err,
              rough_stats[4096]),

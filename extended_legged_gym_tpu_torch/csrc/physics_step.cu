@@ -7,6 +7,10 @@
 //   B2, rough=True, as driven by make_env_step_rough (:565) and
 //       make_decimated_env_step (:626) on a heightfield: entry
 //       physics_decimated_step_rough.
+// Both take a fixed-base model (model.fix_base, the `if model.fix_base` branch
+// of the Pallas body, :328-329) through the flag TI_FIX of the int table: the
+// base's acceleration is zero, and its 6x6 solve, its inertia at the env's
+// mass, its bias wrench and its world acceleration are skipped.
 // One launch advances B environments by one CONTROL step: for each of
 // `decimation` substeps it computes the PD (or direct) torques and runs one
 // semi-implicit-Euler ABA step: forward kinematics and velocities,
@@ -143,8 +147,9 @@ inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z,
 #define TI_GOFF (TI_LOFF + MAX_NB + 1)    // [MAX_NB + 1] first geom slot of each body
 #define TI_GSLOT (TI_GOFF + MAX_NB + 1)   // [MAX_NG] slot of each geom, body by body
 #define TI_COFF (TI_GSLOT + MAX_NG)       // [MAX_NB + 1] first entry of each body's children
-#define TI_CLIST (TI_COFF + MAX_NB + 1)   // [MAX_NB] children, by parent, then index
-#define TI_MAXD (TI_CLIST + MAX_NB)       // depth of the deepest body
+#define TI_CLIST (TI_COFF + MAX_NB + 1)   // [MAX_NB - 1] children, by parent, then index
+#define TI_FIX (TI_CLIST + MAX_NB - 1)    // 1: the base is fixed (its acceleration is zero)
+#define TI_MAXD (TI_FIX + 1)              // depth of the deepest body
 #define TI_FULL (TI_MAXD + 1)
 
 // ---- float table (tf) ----
@@ -545,13 +550,16 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
   const int *depth = ti + TI_DEPTH, *lvl = ti + TI_LVL, *loff = ti + TI_LOFF;
   const int *goff = ti + TI_GOFF, *gslot = ti + TI_GSLOT, *coff = ti + TI_COFF;
   const int *clist = ti + TI_CLIST, maxd = ti[TI_MAXD];
+  const bool fix = ti[TI_FIX] != 0;
   const float dt = tf[TF_DT], jdamp = tf[TF_JDAMP];
   const float mu = tf[TF_MU] * ws[L.FRIC], delta = ws[L.DELTA];
   const int LV = 7 + nj, AV = 10 + nj, JV = 13 + nj, AN = 13 + 2 * nj;
 
-  // ---- the base's inertia at this env's mass (once per launch) ----
+  // ---- the base's inertia at this env's mass (once per launch; a fixed
+  // base's inertia is never read) ----
   FOR_LANES(l) {
-    for (int k = l; k < 36; k += GROUP) IB0[k] = tf[TF_ISP + k] + delta * tf[TF_IUNIT0 + k];
+    if (!fix)
+      for (int k = l; k < 36; k += GROUP) IB0[k] = tf[TF_ISP + k] + delta * tf[TF_IUNIT0 + k];
   }
   SYNC();
 
@@ -628,9 +636,10 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
     SYNC();
 
     // ---- each body (one per lane): IA = I + its geoms' dampers, pA = v x* (I v)
-    // - gravity wrench - its geoms' wrenches, geoms in index order ----
+    // - gravity wrench - its geoms' wrenches, geoms in index order (a fixed
+    // base's IA and pA are never read: its lane idles) ----
     FOR_LANES(l) {
-      if (l < nb) {
+      if (l < nb && !(fix && l == 0)) {
         const int i = l;
         const float* Inom = i == 0 ? IB0 : tf + TF_ISP + 36 * i;
         const float* Vi = BODY(i, V);
@@ -713,9 +722,11 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
     }
 
     // ---- base (one lane): add its children's terms, solve (IA0 + 1e-6 I) a0 =
-    // -pA0 by Cholesky ----
+    // -pA0 by Cholesky; a fixed base's acceleration is zero ----
     FOR_LANES(l) {
-      if (l == 0) {
+      if (l == 0 && fix) {
+        for (int k = 0; k < 6; ++k) BODY(0, AC)[k] = 0.f;
+      } else if (l == 0) {
         // the factor L overwrites the lower triangle of M6 as it is formed
         float M6[36], inv[6], y[6], x[6], p0[6];
         load16(BODY(0, IA), M6, 36);
@@ -833,10 +844,14 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
         float* av = s + AV;
         float R0a[3], R0w[3], acl[3], wxv[3];
         const float *V0 = BODY(0, V), *A0 = BODY(0, AC), *R0 = BODY(0, R);
-        cross3(V0, V0 + 3, wxv);
-        for (int k = 0; k < 3; ++k) acl[k] = A0[3 + k] + wxv[k];
-        m3vec(R0, acl, R0a);
-        m3vec(R0, A0, R0w);
+        if (fix) {                             // zero world acceleration, as the plain step
+          for (int k = 0; k < 3; ++k) R0a[k] = R0w[k] = 0.f;
+        } else {
+          cross3(V0, V0 + 3, wxv);
+          for (int k = 0; k < 3; ++k) acl[k] = A0[3 + k] + wxv[k];
+          m3vec(R0, acl, R0a);
+          m3vec(R0, A0, R0w);
+        }
         float nw[3];
         for (int k = 0; k < 3; ++k) {
           lv[k] = fminf(fmaxf(lv[k] + dt * R0a[k], -100.f), 100.f);
@@ -876,6 +891,8 @@ int physics_workspace_bytes(int nb, int nj, int ng, int nf, int rough) {
 }
 // Entries of the int table with its schedule (TI_FULL).
 int physics_int_table_size() { return TI_FULL; }
+// Present in sources that read TI_FIX (the fixed-base regime); returns 1.
+int physics_has_fixed_base() { return 1; }
 }  // extern "C"
 
 #ifdef __CUDACC__

@@ -22,8 +22,8 @@ Semantics kept from the JAX env, reference quirks included:
 * rewards: per-term scales × dt, ``only_positive_rewards`` clip;
 * terminations: contact force > 1 N on a termination geom, non-finite state,
   or timeout; non-finite values are replaced by ``nan_to_num``;
-* resets re-draw dof pos in [0.5, 1.5]×default, root velocities in ±0.5 and
-  commands;
+* resets re-draw dof pos in [0.5, 1.5]×default, root velocities in ±0.5
+  (zero on a fixed base, ``asset.fix_base_link``) and commands;
 * the main env never updates ``last_actions`` / ``last_dof_vel`` after a
   reset (they stay zero, as in the JAX env); rollouts update them each step;
 * on ``heightfield`` / ``trimesh`` terrains (both contact the generated
@@ -153,7 +153,10 @@ class LeggedRobot:
         self.max_episode_length_s = cfg.env.episode_length_s
         self.max_episode_length = int(np.ceil(self.max_episode_length_s / self.dt))
 
-        self.model = model = load_model(cfg.asset.file)
+        model = load_model(cfg.asset.file)
+        if cfg.asset.fix_base_link and not model.fix_base:
+            model = dataclasses.replace(model, _tensors={}, fix_base=True)
+        self.model = model
         self.num_dof = model.nj
         self.terrain_gen: Optional[Terrain] = None
         if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
@@ -430,6 +433,9 @@ class LeggedRobot:
         lin_vel = init[7:10] + self._uniform((B, 3), -0.5, 0.5)
         ang_vel = init[10:13] + self._uniform((B, 3), -0.5, 0.5)
         dof_pos = self.default_dof_pos * self._uniform((B, self.num_dof), 0.5, 1.5)
+        if self.model.fix_base:
+            # the physics zero a fixed base's acceleration, not its velocity
+            lin_vel, ang_vel = torch.zeros_like(lin_vel), torch.zeros_like(ang_vel)
         if self.custom_origins:
             pos = pos + F.pad(self._draw_spawn_offset(), (0, 1))
         anchor = pos[:, None, :2].expand(B, self.model.ng, 2).clone()

@@ -100,6 +100,7 @@ class AssetCfg:
     foot_name: str = "None"
     penalize_contacts_on: List[str] = []
     terminate_after_contacts_on: List[str] = []
+    fix_base_link: bool = False     # the base is welded to the world (an arm)
 
 
 @configclass

@@ -9,6 +9,8 @@ returns ``(new_phys, tau_last, report)``:
 * on CUDA tensors it launches one hand-written kernel of
   ``csrc/physics_step.cu`` once per call (or raises): B1 on a flat terrain,
   B2 on a heightfield, whose corner-packed texture it keeps on the device;
+  a fixed-base model (``model.fix_base``: zero base acceleration, no 6x6
+  base solve) runs the same kernels with the int table's fixed-base flag;
 * on CPU tensors it runs the plain version, ``physics/aba.py`` once per
   substep.
 
@@ -71,7 +73,8 @@ TI_GOFF = TI_LOFF + MAX_NB + 1
 TI_GSLOT = TI_GOFF + MAX_NB + 1
 TI_COFF = TI_GSLOT + MAX_NG
 TI_CLIST = TI_COFF + MAX_NB + 1
-TI_MAXD = TI_CLIST + MAX_NB
+TI_FIX = TI_CLIST + MAX_NB - 1          # the fixed-base flag, after the children
+TI_MAXD = TI_FIX + 1
 TI_FULL = TI_MAXD + 1
 TF_DT, TF_G, TF_KP, TF_KD, TF_KT, TF_MU, TF_KTS, TF_JDAMP, TF_H0, TF_ASCALE = (
     0, 1, 4, 5, 6, 7, 8, 9, 10, 11)
@@ -174,6 +177,10 @@ def load_library(source: str = SOURCE, extra_flags=()) -> ctypes.CDLL:
             lib.shared_workspace = True
         except AttributeError:          # an older source: one thread per env, no workspace
             lib.shared_workspace = False
+        try:
+            lib.fixed_base = lib.physics_has_fixed_base() == 1
+        except AttributeError:          # an older source, which ignores TI_FIX
+            lib.fixed_base = False
         layout = (ctypes.c_int * 6)()
         lib.physics_table_layout(ctypes.addressof(layout))
         want = (MAX_NB, MAX_NJ, MAX_NG, MAX_NF, TI_SIZE, TF_SIZE)
@@ -227,17 +234,21 @@ def _write_schedule(ti: np.ndarray, parent: np.ndarray, geom_body: np.ndarray):
     ti[TI_GSLOT + np.lexsort((np.arange(ng), geom_body))] = np.arange(ng)
     ti[TI_COFF:TI_COFF + nb + 1] = [int((parent[1:] < b).sum()) for b in range(nb + 1)]
     ti[TI_CLIST:TI_CLIST + nb - 1] = 1 + np.lexsort((np.arange(nb - 1), parent[1:]))
+    # nb - 1 <= MAX_NB - 1 children: the list ends before TI_FIX
     ti[TI_MAXD] = depth.max()
 
 
 def control_step_flops(nb: int, nj: int, ng: int, nf: int, decimation: int,
-                       rough: bool = False) -> int:
+                       rough: bool = False, fix_base: bool = False) -> int:
     """Float operations one env's control step needs (PD torques, clamps and
     ``decimation`` substeps; the report on the last).  Each add, multiply,
     min/max, divide, square root, sine, cosine or floor counts one.  The 6x6
     and 3x3 products are counted blockwise: zero blocks, the zeros of skew
     matrices and the mirrored half of symmetric results cost nothing.
-    ``rough`` counts B2: the heightfield sample and the general normal."""
+    ``rough`` counts B2: the heightfield sample and the general normal;
+    ``fix_base`` drops the base work a fixed base skips: the 6x6 solve, the
+    mass delta, body 0's IA v, v x* (IA v) and gravity wrench, and the base's
+    world acceleration."""
     per_sub = (13 * nj               # torques and clamp (7); joint integration (6)
                + 407                 # base frame (60), mass delta (43), 6x6 Cholesky solve (175),
                                      # base integration and exp-map quaternion (129)
@@ -249,6 +260,9 @@ def control_step_flops(nb: int, nj: int, ng: int, nf: int, decimation: int,
                                      # forward sweep (67)
                + 247 * ng)           # per geom: point position and velocity (45); penalty,
                                      # caps and stiction (50); wrench (37); damper dt Ds (115)
+    if fix_base:
+        per_sub -= 175 + 43 + 129 + 42   # no base solve, mass delta or body 0 terms; no base
+                                         # world acceleration (cross, 3 adds, two 3x3 products)
     report = nf * 45 + ng * 76       # foot kinematics; implicit-consistent geom forces
     if rough:
         per_sub += 98 * ng           # per geom: grid coordinates, clip and floor (12), bilinear
@@ -276,18 +290,24 @@ class DecimatedEnvStep:
     model's torque limits, and ``decimation`` physics substeps, on flat ground
     (kernel B1) or on a heightfield (kernel B2).  ``launches`` counts the B1
     launches of all instances of the class, ``rough_launches`` the B2
-    launches (:class:`EnvStep` keeps its own)."""
+    launches, ``fixed_launches`` the launches of either with a fixed base
+    (which count in neither of the others; :class:`EnvStep` keeps its
+    own)."""
 
     launches = 0
     rough_launches = 0
+    fixed_launches = 0
 
     def __init__(self, model: RobotModel, sp: SimParams, terrain: TerrainData, decimation: int,
                  p_gains, d_gains, default_dof_pos, action_scale: float,
                  control_type: str = "P"):
         if control_type not in CONTROL_TYPES:
             raise NotImplementedError(f"fused step supports control types P and T, not {control_type}")
-        if any(t != "revolute" for t in model.joint_types) or model.fix_base:
-            raise NotImplementedError("the kernel takes floating-base, revolute-joint robots")
+        if sp.solver != "aba":
+            raise ValueError(f"the fused step is the ABA step: SimParams.solver must be 'aba', "
+                             f"not {sp.solver!r}")
+        if any(t != "revolute" for t in model.joint_types):
+            raise NotImplementedError("the kernel takes revolute-joint robots")
         fg = foot_geoms(model)
         nb, nj, ng, nf = model.nb, model.nj, model.ng, len(fg)
         if nb > MAX_NB or nj > MAX_NJ or ng > MAX_NG or nf > MAX_NF:
@@ -316,6 +336,7 @@ class DecimatedEnvStep:
         ti[TI_GBODY:TI_GBODY + ng] = model.geom_body
         ti[TI_FGEOM:TI_FGEOM + nf] = fg
         _write_schedule(ti, np.asarray(model.parent), np.asarray(model.geom_body))
+        ti[TI_FIX] = int(model.fix_base)
         tf = np.zeros(TF_SIZE, np.float64)
         c = sp.contact
         tf[TF_DT] = sp.dt
@@ -427,6 +448,8 @@ class DecimatedEnvStep:
         library from :func:`load_library`, by default the package's own
         source."""
         lib = lib or load_library()
+        if self.model.fix_base and not lib.fixed_base:
+            raise RuntimeError("this kernel build has no fixed-base regime (TI_FIX)")
         if lib.shared_workspace:
             if id(lib) not in self._ws_checked:
                 got = lib.physics_workspace_bytes(self.model.nb, self.model.nj, self.model.ng,
@@ -451,7 +474,9 @@ class DecimatedEnvStep:
         if rc != 0:
             raise RuntimeError(f"physics kernel {'B2' if self.rough else 'B1'} launch failed: "
                                f"cudaError {rc}")
-        if self.rough:
+        if self.model.fix_base:
+            type(self).fixed_launches += 1
+        elif self.rough:
             type(self).rough_launches += 1
         else:
             type(self).launches += 1
@@ -495,10 +520,11 @@ class EnvStep(DecimatedEnvStep):
     1; the torques are clamped to the model's limits as in the control step.
     Called as ``(phys, tau, env_params) -> (new_phys, report)``.
     ``EnvStep.launches`` counts its B1 launches, ``EnvStep.rough_launches``
-    its B2 launches."""
+    its B2 launches, ``EnvStep.fixed_launches`` those with a fixed base."""
 
     launches = 0
     rough_launches = 0
+    fixed_launches = 0
 
     def __init__(self, model: RobotModel, sp: SimParams, terrain: TerrainData):
         zeros = np.zeros(model.nj, np.float32)

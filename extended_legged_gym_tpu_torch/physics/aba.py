@@ -12,7 +12,10 @@ contact damping: each active contact's spatial damper
 articulated inertia before the backward sweep, and the explicit force
 ``f_el − D v_point`` to its bias force.  Gravity is applied as explicit
 per-body forces (the base-acceleration trick would let the implicit dampers
-feel a spurious ``dt·D·g``).  Revolute joints only.
+feel a spurious ``dt·D·g``).  Revolute joints only.  On a fixed base
+(``model.fix_base``) the base acceleration is zero and the 6x6 base solve is
+skipped; the base's velocities are integrated unchanged (the env zeroes them
+at reset).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import List
 
 import torch
 
+from ..ops.linalg import cho_solve_unrolled
 from ..terrain.heightfield import TerrainData
 from ..utils.math import cross as _cross, quat_to_matrix, skew
 from .contact import sphere_terrain_contact
@@ -72,36 +76,6 @@ def _spatial_inertia(inertia, com, m):
     return torch.cat([top, bot], -2)
 
 
-def cho_solve_unrolled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for a batch of small SPD systems [B, n, n] by an
-    unrolled Cholesky (pivots floored at 1e-12 before the square root)."""
-    n = A.shape[-1]
-    L = [[None] * n for _ in range(n)]
-    for j in range(n):
-        acc = A[:, j, j]
-        for k in range(j):
-            acc = acc - L[j][k] * L[j][k]
-        L[j][j] = torch.sqrt(acc.clamp(min=1e-12))
-        for i in range(j + 1, n):
-            acc = A[:, i, j]
-            for k in range(j):
-                acc = acc - L[i][k] * L[j][k]
-            L[i][j] = acc / L[j][j]
-    y = []
-    for i in range(n):
-        acc = b[:, i]
-        for k in range(i):
-            acc = acc - L[i][k] * y[k]
-        y.append(acc / L[i][i])
-    x = [None] * n
-    for i in reversed(range(n)):
-        acc = y[i]
-        for k in range(i + 1, n):
-            acc = acc - L[k][i] * x[k]
-        x[i] = acc / L[i][i]
-    return torch.stack(x, -1)
-
-
 def foot_geoms(model: RobotModel) -> List[int]:
     """Geom index of each foot site, in sorted foot-name order (the order the
     JAX ABA step and kernel report foot states in)."""
@@ -114,8 +88,8 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
                      env_params: EnvPhysParams):
     """One semi-implicit Euler step of B envs: ``(new_state, StepReport)``,
     in the floating-point type of ``state``."""
-    if any(t != "revolute" for t in model.joint_types) or model.fix_base:
-        raise NotImplementedError("the port's ABA step takes floating-base, revolute-joint robots")
+    if any(t != "revolute" for t in model.joint_types):
+        raise NotImplementedError("the port's ABA step takes revolute-joint robots")
     dev, dt, ft = state.base_pos.device, sp.dt, state.base_pos.dtype
     T = model.torch(dev, ft)
     nb, nj = model.nb, model.nj
@@ -192,9 +166,12 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
         pA[par] = pA[par] + _xforce_T(XE[i], r, pa)
 
     # ---------------- base solve + forward sweep ----------------
-    a0 = cho_solve_unrolled(IA[0] + 1e-6 * torch.eye(6, dtype=ft, device=dev), -pA[0])
-    a_cl = a0[:, 3:] + _cross(w_b, v_b)
-    base_acc = torch.cat([_mv(R0, a_cl), _mv(R0, a0[:, :3])], -1)
+    if model.fix_base:
+        a0 = base_acc = torch.zeros(B, 6, dtype=ft, device=dev)
+    else:
+        a0 = cho_solve_unrolled(IA[0] + 1e-6 * torch.eye(6, dtype=ft, device=dev), -pA[0])
+        a_cl = a0[:, 3:] + _cross(w_b, v_b)
+        base_acc = torch.cat([_mv(R0, a_cl), _mv(R0, a0[:, :3])], -1)
     a, qdd = [a0] + [None] * (nb - 1), []
     for i in range(1, nb):
         a_i = _xmot(XE[i], T["joint_origin_pos"][i], a[model.parent[i]]) + c_bias[i]
@@ -227,4 +204,5 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     off = T["foot_offset"][: len(fg)]
     foot_pos = torch.stack(p_w, 1)[:, fb] + _mv(Rf, off.expand(B, -1, -1))
     foot_vel = _mv(Rf, vf[..., 3:] + _cross(vf[..., :3], off))
-    return new_state, StepReport(geom_forces=geom_forces, foot_pos=foot_pos, foot_vel=foot_vel)
+    return new_state, StepReport(geom_forces=geom_forces, foot_pos=foot_pos, foot_vel=foot_vel,
+                                 qdd=udot)

@@ -25,8 +25,10 @@ class ElSpider(LeggedRobot):
         return (sync + async_) * self._gait_active(s)
 
 def elspider_air_rough_cfg() -> LeggedRobotCfg:
-    """The rough base the flat task builds on (the rough task itself needs
-    the trimesh terrain's mesh contacts, not ported)."""
+    """The rough base the flat task builds on.  Its ``trimesh`` terrain
+    without ``trimesh_contacts`` is the generated heightfield that B2
+    contacts, as ``anymal_c_rough``'s; the rough task is not registered
+    yet."""
     cfg = LeggedRobotCfg()
     cfg.env.num_envs = 4096
     cfg.env.num_actions = 18

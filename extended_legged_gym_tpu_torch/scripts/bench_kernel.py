@@ -20,7 +20,12 @@ root, for example against an older commit's source:
 Without ``--source`` it times ``csrc/physics_step.cu``.  ``--robot
 elspider_air`` times B1 with the ElSpider Air hexapod's tables (19 bodies,
 18 joints, 46 spheres, 6 feet) instead, at the evaluation's 16 envs and the
-training fleet's 4096 (B2 is not run).  Prints one JSON object.
+training fleet's 4096 (B2 is not run); ``--robot cyberdog2`` B1 with
+CyberDog2's (13 bodies, 12 joints, 37 spheres, 4 feet) at 4096; ``--robot
+franka`` the fixed-base regime with the Franka arm's (8 bodies, 7 joints,
+one sphere on the base, no feet) at 8 and 1024, from states at rest.  With
+several sources, each batch's outputs of every source are compared with the
+first source's bit for bit (``same_bits``).  Prints one JSON object.
 """
 import argparse
 import json
@@ -40,9 +45,12 @@ from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg
 FLAT_BATCHES = (1024, 776, 24, 8, 128, 97, 3, 2048)
 ROUGH_BATCHES = (32, 4096)
 ELSPIDER_BATCHES = (16, 4096)
+CYBERDOG2_BATCHES = (4096,)
+FRANKA_BATCHES = (8, 1024)
 # base heights at which near_standing's robots touch the ground (ANYmal-C
-# stands at ~0.5 m, ElSpider Air at its default pose at ~0.18 m)
-STAND_HEIGHT = {"anymal_c": 0.54, "elspider_air": 0.2}
+# stands at ~0.5 m, ElSpider Air at its default pose at ~0.18 m, CyberDog2's
+# lowest sphere hangs 0.239 m below its base at the default pose)
+STAND_HEIGHT = {"anymal_c": 0.54, "elspider_air": 0.2, "cyberdog2": 0.23}
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 
@@ -56,7 +64,8 @@ def launch_bound(step, B):
     m = step.model
     nbytes = (B * pk.control_step_bytes(m.nj, m.ng, step.nf, step.decimation, step.rough)
               + 4 * (pk.TF_SIZE + pk.TI_FULL))
-    flops = B * pk.control_step_flops(m.nb, m.nj, m.ng, step.nf, step.decimation, step.rough)
+    flops = B * pk.control_step_flops(m.nb, m.nj, m.ng, step.nf, step.decimation, step.rough,
+                                      fix_base=m.fix_base)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", flops, nbytes
 
@@ -87,26 +96,62 @@ def rough_env(num_envs: int, device) -> LeggedRobot:
     return LeggedRobot(eval_cfg(num_envs), device=device)
 
 
+def franka_step(device, control_type="P", terrain=None):
+    """The fixed-base regime with the Franka arm's tables: the ``franka``
+    env's fused control step (PD with the arm's gains, 4 substeps), on
+    ``terrain`` (default the plane) or with control T."""
+    step = task_step("franka", device)
+    if control_type == "P" and terrain is None:
+        return step
+    return pk.make_decimated_env_step(step.model, step.sp, terrain or step.terrain, 4,
+                                      step._host["p"], step._host["d"], step._host["ddp"], 0.5,
+                                      control_type=control_type)
+
+
+def at_rest(model, B, seed, device, origins=None):
+    """near_standing's joints, friction, mass deltas and actions with the
+    base at rest at ``origins`` [>=B, 3] (default the world origin), as the
+    env resets a fixed base."""
+    st, ep, act = near_standing(model, B, seed, device, origins, height=0.0)
+    base = (torch.zeros(B, 3, device=device) if origins is None
+            else origins[:B].to(device=device, dtype=torch.float32).clone())
+    zero = torch.zeros(B, 3, device=device)
+    st = st.replace(base_pos=base, base_lin_vel=zero, base_ang_vel=zero.clone(),
+                    contact_anchor=base[:, None, :2].expand(B, model.ng, 2).contiguous())
+    return st, ep, act
+
+
+def task_step(task, device):
+    """The fused control step (PD, 4 substeps) of a registered task's env."""
+    from extended_legged_gym_tpu_torch import robots  # noqa: F401
+    from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
+
+    cfg, _ = task_registry.get_cfgs(task)
+    cfg.env.num_envs = 1
+    return task_registry.make_env(task, env_cfg=cfg, device=device)[0].decimated_step
+
+
 def elspider_step(device):
     """B1 with the ElSpider Air tables: the ``elspider_air_flat`` env's fused
-    control step (PD, 4 substeps)."""
-    from extended_legged_gym_tpu_torch.robots.elspider_air import ElSpider, elspider_air_flat_cfg
-
-    cfg = elspider_air_flat_cfg()
-    cfg.env.num_envs = 1
-    return ElSpider(cfg, device=device).decimated_step
+    control step."""
+    return task_step("elspider_air_flat", device)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", action="append", default=None)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--robot", default="anymal_c", choices=["anymal_c", "elspider_air"])
+    ap.add_argument("--robot", default="anymal_c",
+                    choices=["anymal_c", "elspider_air", "cyberdog2", "franka"])
     args = ap.parse_args()
     sources = args.source or [pk.SOURCE]
     dev = torch.device("cuda")
     if args.robot == "elspider_air":
         runs = (("B1", elspider_step(dev), ELSPIDER_BATCHES, None),)
+    elif args.robot == "cyberdog2":
+        runs = (("B1", task_step("cyberdog2_walk", dev), CYBERDOG2_BATCHES, None),)
+    elif args.robot == "franka":
+        runs = (("fixed", franka_step(dev), FRANKA_BATCHES, None),)
     else:
         flat = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1), device=dev).decimated_step
         renv = rough_env(max(ROUGH_BATCHES), dev)
@@ -121,21 +166,34 @@ def main():
     ms = {src: {name: {B: [] for B in batches} for name, _, batches, _ in runs}
           for src in sources}
     bounds = {name: {} for name, _, _, _ in runs}
+    same = {src: {name: {} for name, _, _, _ in runs} for src in sources[1:]}
+    outs = ("out", "tau", "gf", "fpos", "fvel")
     for name, step, batches, org in runs:
         for B in batches:
             bms, by, _, _ = launch_bound(step, B)
             bounds[name][B] = {"bound_ms": bms, "bound_by": by}
-            st, ep, act = near_standing(step.model, B, B, dev, org, STAND_HEIGHT[args.robot])
+            if step.model.fix_base:
+                st, ep, act = at_rest(step.model, B, B, dev, org)
+            else:
+                st, ep, act = near_standing(step.model, B, B, dev, org, STAND_HEIGHT[args.robot])
             bufs = step.pack(st, act, ep)          # the kernel alone is timed
             for src in sources + sources[::-1]:
                 ms[src][name][B].append(cuda_ms(
                     lambda: step.run(bufs, lib=libs[src]), reps=args.reps, warmup=5))
+            first = None
+            for src in sources:
+                step.run(bufs, lib=libs[src])
+                got = [bufs[k].clone() for k in outs]
+                if first is None:
+                    first = got
+                else:
+                    same[src][name][B] = all(torch.equal(a, b) for a, b in zip(first, got))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"card": smi, "robot": args.robot, "reps": args.reps, "bounds": bounds,
                       "kernels": [
         {"source": src, "ptxas": ptxas[src], "shared_workspace": libs[src].shared_workspace,
-         "ms_per_launch": ms[src]} for src in sources]}))
+         "ms_per_launch": ms[src], "same_bits": same.get(src)} for src in sources]}))
 
 
 if __name__ == "__main__":

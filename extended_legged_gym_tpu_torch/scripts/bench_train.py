@@ -5,7 +5,8 @@
   per env, 5 x 4 minibatches, seed 2); ``--task anymal_c_rough --seed 1`` is
   TRAIN_ROUGH_r5's (the terrain curriculum, the [512, 256, 128] networks);
   ``--task anymal_c_flat_sea`` runs the SEA actuator network (one torques-in
-  B1 launch per substep), ``--task elspider_air_flat --seed 1`` the hexapod;
+  B1 launch per substep), ``--task elspider_air_flat --seed 1`` the hexapod,
+  ``--task franka --num_envs 1024`` the arm on the fixed-base regime;
 * ``ppo_recurrent``: the task's PPO with the recurrent policy
   (``ActorCriticRecurrent``, an LSTM of the config's 512 units before each
   MLP) and RND intrinsic rewards (``RND_CFG``);
@@ -27,7 +28,7 @@ kernels that take the most time.
 Usage, from the repository root:
 
   python -m extended_legged_gym_tpu_torch.scripts.bench_train [--path ppo] \\
-      [--task anymal_c_flat] [--seed 2] [--iters 10] [--reps 2]
+      [--task anymal_c_flat] [--seed 2] [--iters 10] [--reps 2] [--num_envs 4096]
 
 Prints one JSON object.
 """
@@ -100,8 +101,9 @@ def profile_iterations(iterate, warmup: int, iters: int, reps: int) -> dict:
                 top_device_kernels=top_device_kernels(prof, reps))
 
 
-def ppo_iteration(task: str, seed: int, device, recurrent: bool = False):
-    args = get_args(argv=["--seed", str(seed), "--num_envs", "4096", "--device", str(device)])
+def ppo_iteration(task: str, seed: int, device, recurrent: bool = False, num_envs: int = 4096):
+    args = get_args(argv=["--seed", str(seed), "--num_envs", str(num_envs), "--device",
+                          str(device)])
     env, _ = task_registry.make_env(task, args)
     _, train_cfg = task_registry.get_cfgs(task)
     train_cfg.seed = seed
@@ -154,9 +156,10 @@ def distill_iteration(device):
 
 
 def train_profile(warmup=3, iters=10, reps=2, device="cuda", task="anymal_c_flat", seed=2,
-                  path="ppo"):
+                  path="ppo", num_envs=4096):
     if path in ("ppo", "ppo_recurrent"):
-        iterate, info = ppo_iteration(task, seed, device, recurrent=path == "ppo_recurrent")
+        iterate, info = ppo_iteration(task, seed, device, recurrent=path == "ppo_recurrent",
+                                      num_envs=num_envs)
     elif path == "distill":
         iterate, info = distill_iteration(device)
     else:
@@ -175,9 +178,10 @@ def main():
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--num_envs", type=int, default=4096)
     args = ap.parse_args()
     out = train_profile(args.warmup, args.iters, args.reps, task=args.task, seed=args.seed,
-                        path=args.path)
+                        path=args.path, num_envs=args.num_envs)
     print(json.dumps({"card": card_name("cuda"), **out}))
 
 

@@ -61,6 +61,41 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-9)
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (xyzw), branch-free: of the four
+    candidate solutions (trace-, x-, y-, z-major) the one with the largest
+    radicand."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    t = torch.stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                     1 - m00 + m11 - m22, 1 - m00 - m11 + m22], dim=-1)
+    s = torch.sqrt(t.clamp(min=1e-12)) / 2.0       # (qw, qx, qy, qz) of each candidate
+    inv4 = 1.0 / (4.0 * s)
+    cand = torch.stack([                           # each row (x, y, z, w)
+        torch.stack([(m21 - m12) * inv4[..., 0], (m02 - m20) * inv4[..., 0],
+                     (m10 - m01) * inv4[..., 0], s[..., 0]], dim=-1),
+        torch.stack([s[..., 1], (m01 + m10) * inv4[..., 1],
+                     (m02 + m20) * inv4[..., 1], (m21 - m12) * inv4[..., 1]], dim=-1),
+        torch.stack([(m01 + m10) * inv4[..., 2], s[..., 2],
+                     (m12 + m21) * inv4[..., 2], (m02 - m20) * inv4[..., 2]], dim=-1),
+        torch.stack([(m02 + m20) * inv4[..., 3], (m12 + m21) * inv4[..., 3],
+                     s[..., 3], (m10 - m01) * inv4[..., 3]], dim=-1),
+    ], dim=-2)                                     # [..., 4, 4]
+    idx = torch.argmax(t, dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None].expand(idx.shape + (1, 4)), dim=-2)
+    return quat_normalize(q[..., 0, :])
+
+
+def wrap_to_pi(angles: torch.Tensor) -> torch.Tensor:
+    """Wrap angles to [-pi, pi)."""
+    return torch.remainder(angles + np.pi, 2 * np.pi) - np.pi
+
+
 def yaw_quat(q: torch.Tensor) -> torch.Tensor:
     """Quaternion with only the yaw component of q."""
     qz, qw = q[..., 2], q[..., 3]

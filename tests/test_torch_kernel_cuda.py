@@ -1,7 +1,8 @@
 """The fused CUDA physics kernels (B1 flat, B2 heightfield) and their V-control
 routes (one substep, torques passed in) against their plain version, on the
 card; two launches on the same inputs agree bit for bit.  B1 is also held
-with the ElSpider Air hexapod's tables.
+with the ElSpider Air hexapod's tables, and the fixed-base regime with the
+Franka arm's.
 
 Needs a CUDA card and nvcc; skips without a card.  Imports no JAX, so it runs
 on a machine without it:
@@ -159,6 +160,34 @@ def test_elspider_kernel_matches_plain_on_card():
     # the last substep's torques follow joint_pos and joint_vel through the
     # gains: 80 x 5e-4 + 2 x 5e-2
     torch.testing.assert_close(tk, tp, atol=0.14, rtol=0)
+    again = step.launch(st, act, ep)
+    torch.cuda.synchronize()
+    for k in TOLS:
+        assert torch.equal(getattr(sk, k), getattr(again[0], k)), k
+
+
+def test_fixed_base_kernel_matches_plain_on_card():
+    """The fixed-base regime with the arm's tables at 300 envs from states at
+    rest: one launch, counted on ``fixed_launches`` alone, against the plain
+    fixed-base step; the base pose unchanged bit for bit; two launches bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import at_rest, franka_step
+
+    dev = torch.device("cuda")
+    step = franka_step(dev)
+    st, ep, act = at_rest(step.model, 300, 0, dev)
+    before = pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.fixed_launches
+    sk, tk, rk = step(st, act, ep)
+    assert (pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.fixed_launches) == (
+        before[0], before[1] + 1)
+    sp, tp, rp = step.plain(st, act, ep)
+    torch.cuda.synchronize()
+    _assert_close(sk, rk, sp, rp)
+    torch.testing.assert_close(tk, tp, atol=1e-2, rtol=0)
+    assert rk.foot_pos.shape == (300, 0, 3)
+    assert torch.equal(sk.base_pos, st.base_pos) and torch.equal(sk.base_quat, st.base_quat)
     again = step.launch(st, act, ep)
     torch.cuda.synchronize()
     for k in TOLS:

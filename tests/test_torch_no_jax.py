@@ -11,7 +11,9 @@ terrain estimator loads into the port's estimator and predicts the ray task's
 32 distances, and the warm-start checkpoint's actor loads into a
 student-teacher pair as its teacher; the actuator network, RND and the
 recurrent policy modules import, the committed SEA and ElSpider checkpoints
-load into their tasks' runners, and the SEA env steps."""
+load into their tasks' runners, and the SEA env steps; the small SPD solves,
+the dynamics, the Franka and the CyberDog2 modules import and the
+fixed-base Franka env and the CyberDog2 walk env step."""
 import os
 import subprocess
 import sys
@@ -60,7 +62,9 @@ SCRIPT = textwrap.dedent(f"""
               "scripts.terrain_est_train", "scripts.terrain_est_play",
               "scripts.estimator_closed_loop", "scripts.evidence_artifacts",
               "models.actuator_net", "models.rnd", "robots.elspider_air", "scripts.bench_train",
-              "scripts.bench_kernel"):
+              "scripts.bench_kernel", "ops.linalg", "physics.dynamics", "robots.franka",
+              "robots.task_variants", "robots.cyberdog2", "robots.cyberdog2_standdance",
+              "robots.cyberdog2_walk", "scripts.record_franka"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -76,6 +80,12 @@ SCRIPT = textwrap.dedent(f"""
         s = env.step(env.reset_all(seed=0), runner.get_inference_policy()(env.reset_all(seed=0).obs))
         assert bool(torch.isfinite(s.obs).all()), task
     assert env.num_actions == 18
+    env, _ = task_registry.make_env("franka", get_args(argv=["--num_envs", "2"]), device="cpu")
+    s = env.step(env.reset_all(seed=0), torch.zeros(2, 7))
+    assert env.model.fix_base and bool(torch.isfinite(s.obs).all())
+    env, _ = task_registry.make_env("cyber2_walk", get_args(argv=["--num_envs", "2"]), device="cpu")
+    s = env.step(env.reset_all(seed=0), torch.zeros(2, 12))
+    assert s.obs.shape == (2, 141) and bool(torch.isfinite(s.obs).all())
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     from extended_legged_gym_tpu_torch.models.networks import read_checkpoint
