@@ -114,19 +114,51 @@ Phases (each prints its seconds; the run fails rather than overrun):
    against the float64 plain version at the walk family's 4096 envs, two
    launches bit for bit; CYBER_ITERS iterations of cyber2_walk training at
    4096 (B1 exactly CYBER_ITERS x 24, phase 8's checks);
-20. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+20. the LeggedRobot family's kernels: B1 with A1's and Go2's tables, B2
+   with A1's, Go2's, ANYmal-B's, Cassie's and the hexapod's, each on its
+   own task's grid from the spawn origins, against the float64 plain
+   version at 4096 from near-standing states (each block's shared memory
+   printed), the 25-step drift at 32 reported (drift_report), two launches
+   bit for bit at 4096; the fixed-base regime with the hanging hexapod's
+   tables (foot_track_elspider_air_hang) from the hang config's initial
+   states with random actions (the feet in contact counted, the base
+   unchanged bit for bit after 1 and 25 steps) and with its base held at
+   0.175 m (legs loaded), each against the float64 plain at 4096, two
+   launches bit for bit, and held at 0.17 m, where float32 rounding alone
+   moves the plain step by up to ONE_STEP_ATOL, within ONE_STEP_ATOL of the
+   float64 plain beyond how far float32 plain steps from inputs moved by
+   one ulp lie from it, env by env (track_float32);
+21. the family's training paths: FAMILY_ITERS PPO iterations at 4096 envs
+   through the registry of a1, go2_rough, anymal_b, cassie,
+   elspider_air_rough, anymal_c_rough_teacher and anymal_c_student (the
+   critic 235 wide), pose_go2_flat and foot_track_elspider_air_hang (the
+   fixed-base route alone): phase 8's checks (CURRICULUM_WAIVED: a1 and
+   elspider_air_rough, where no level can move, only when the run shows
+   why), the task's route exactly
+   FAMILY_ITERS x 24, the others 0; Cassie's termination episode sum finite
+   and non-zero where an episode ended (or a line saying none did);
+22. the family's other tasks (a1_flat, go2_flat, the ANYmal-C load, pose
+   and stand variants, the Go2 load and stand variants, the ElSpider pose
+   and flat foot-tracking tasks) through the registry at 4096 envs,
+   FAMILY_STEPS control steps each: finite rewards, the route exactly
+   FAMILY_STEPS launches, the others 0;
+23. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-21. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+24. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-22. the kernel line (JSON) and the result line.  B1's entry counts its
-   launches on the MPC path, the flat training path, the distillation path
-   and the RL-extension paths; B1's entry on the hexapod's tables its
-   launches on the ElSpider path; the SEA route's its launches on the SEA
-   training path; B2's entry on the rough path, the ray path, the rough
-   training path and the estimator path; the fixed-base regime's on the
-   Franka training and rollout paths, with its times at 1024; B1's entry
-   on CyberDog2's tables on the CyberDog2 training path; the others carry
-   their times at the training fleet's 4096.
+25. the kernel line (JSON) and the result line.  B1's entry counts its
+   launches on the MPC path, the flat training path, the distillation path,
+   the RL-extension paths and the ANYmal-C variants' stepping; B1's entry
+   on the hexapod's tables its launches on the ElSpider path and the
+   ElSpider pose and foot-tracking stepping; the SEA route's its launches
+   on the SEA training path; B2's entry on the rough path, the ray path,
+   the rough training path, the estimator path and the teacher's and the
+   student's training; the fixed-base regime's on the Franka training and
+   rollout paths, with its times at 1024; B1's entry on CyberDog2's tables
+   on the CyberDog2 training path; each family entry (B1 on A1's and Go2's
+   tables, B2 on the five new tables, the fixed-base regime on the
+   hexapod's) its launches in phases 21-22; the others carry their times at
+   the training fleet's 4096.  An entry launched no time fails the run.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -200,6 +232,34 @@ FRANKA_B, FRANKA_FLEET, FRANKA_ITERS = (8, 1024), 1024, 3
 FRANKA_E, FRANKA_S, FRANKA_H = 8, 128, 16
 # CyberDog2 on B1: the walk family's fleet, its training iterations
 CYBER_B, CYBER_ITERS = 4096, 2
+# the LeggedRobot family: each new (regime, tables) pair against plain at
+# the fleet from near-standing states (B2 above its task's spawn origins on
+# its own grid), its 25-step drift at FAMILY_DRIFT_B; the hanging hexapod's
+# fixed base from the hang config's initial states and held at
+# HANG_LOADED_Z, where its legs bear load; FAMILY_ITERS training
+# iterations at the fleet of each FAMILY_TRAIN task and FAMILY_STEPS
+# control steps of each FAMILY_STEP task
+FAMILY_KERNELS = (("B1", "a1_flat"), ("B1", "go2_flat"), ("B2", "a1"), ("B2", "go2_rough"),
+                  ("B2", "anymal_b"), ("B2", "cassie"), ("B2", "elspider_air_rough"))
+# (0.175 m presses the default pose's feet 9 mm into the ground, as near_standing's
+# heights do; at HANG_TIGHT_Z, 14 mm, float32 rounding alone moves the plain step by
+# up to ONE_STEP_ATOL in a few envs, and track_float32 holds the kernel there)
+FAMILY_DRIFT_B, HANG_LOADED_Z, HANG_TIGHT_Z = 32, 0.175, 0.17
+FAMILY_TRAIN = ("a1", "go2_rough", "anymal_b", "cassie", "elspider_air_rough",
+                "anymal_c_rough_teacher", "anymal_c_student", "pose_go2_flat",
+                "foot_track_elspider_air_hang")
+FAMILY_STEP = ("a1_flat", "go2_flat", "load_adapt_anymal_c", "pose_anymal_c", "stand_anymal_c",
+               "load_adapt_go2_flat", "stand_go2_flat", "pose_elspider_air_flat",
+               "foot_track_elspider_air_flat")
+FAMILY_ITERS, FAMILY_STEPS = 2, 5
+# rough family tasks whose curriculum cannot move a level in FAMILY_ITERS
+# iterations, with the cause the run must show for the waiver to hold: the
+# levels move only where an episode ends.  A1's base touches no ground in
+# 48 control steps, and time-outs come at 1000; ElSpider's envs all start
+# on the bottom row (max_init_terrain_level 0), which a short walk keeps,
+# and a promotion needs half of an 8 m subterrain
+CURRICULUM_WAIVED = {"a1": "no episode ended",
+                     "elspider_air_rough": "every env started on the bottom row"}
 ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
 SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
@@ -222,10 +282,14 @@ def fail(msg):
 def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
     """One control step of ``step``'s kernel against its plain version from
     ``states`` = (phys, env_params, actions), the plain version computed in
-    ``plain_dtype`` (default float32); fails beyond ONE_STEP_ATOL.  Times
-    both (the plain version in float32) and records ms, plain ms and the
-    bound in ``kernel_stats[B]``.  Returns the largest difference over the
-    checked fields."""
+    ``plain_dtype`` (default float32); fails beyond ONE_STEP_ATOL.  Against
+    float64, an env whose own float32 and float64 plain steps part by more
+    than ONE_STEP_ATOL (a contact decision that rounding flips, such as a
+    foot on a stair's edge) is held to the float32 plain step, the others to
+    the float64 one; their number is printed.  Times both (the plain version
+    in float32) and records ms, plain ms and the bound in
+    ``kernel_stats[B]``.  Returns the largest difference over the checked
+    fields."""
     import torch
 
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
@@ -235,12 +299,29 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
     sk, tk, rk = step.launch(st, act, ep)
     sp_, tp, rp = step.plain(st, act, ep, dtype=plain_dtype)
     if plain_dtype is not None:
-        sp32 = step.plain(st, act, ep)[0]
+        sp32, tp32, rp32 = step.plain(st, act, ep)
         log(f"{name} B={B}: kernel - float32 plain: " + " ".join(
             f"{k}={(getattr(sk, k) - getattr(sp32, k)).abs().max().item():.3g}"
             for k in ("joint_pos", "joint_vel")) + "; float32 plain - float64 plain: " + " ".join(
             f"{k}={(getattr(sp32, k) - getattr(sp_, k)).abs().max().item():.3g}"
             for k in ("joint_pos", "joint_vel")) + f"; below: kernel - {plain_dtype} plain")
+        if plain_dtype == torch.float64:
+            env_err = lambda a, b: (a - b).abs().reshape(B, -1).amax(1)
+            parted = torch.zeros(B, dtype=torch.bool, device=sk.base_pos.device)
+            for k, tol in ONE_STEP_ATOL.items():
+                a, b = ((rp32.foot_pos, rp.foot_pos) if k == "foot_pos"
+                        else (getattr(sp32, k), getattr(sp_, k)))
+                if a.numel():
+                    parted |= env_err(a, b) > tol
+            pick = lambda a, b: torch.where(parted.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
+            sp_ = sp_.replace(**{k: pick(getattr(sp32, k), getattr(sp_, k))
+                                 for k in ONE_STEP_ATOL if k != "foot_pos"})
+            tp = pick(tp32, tp)
+            rp = rp.__class__(*[pick(a, b) if isinstance(b, torch.Tensor) else b
+                                for a, b in zip(rp32, rp)])
+            log(f"{name} B={B}: {int(parted.sum())} env(s) whose float32 and float64 plain steps "
+                f"part beyond ONE_STEP_ATOL, held to the float32 plain "
+                f"{parted.nonzero().flatten().tolist()[:8]}")
     torch.cuda.synchronize()
     errs = {k: (getattr(sk, k) - getattr(sp_, k)).abs().max().item()
             for k in ONE_STEP_ATOL if k != "foot_pos"}
@@ -268,6 +349,67 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
         f"packing), plain {pms:.3f} ms, bound {bound_ms * 1e3:.3f} us ({flops:.3g} flop, "
         f"{nbytes:.3g} bytes)")
     return max(errs[k] for k in ONE_STEP_ATOL)
+
+
+def track_float32(name, step, B, states):
+    """One control step of ``step``'s kernel from ``states`` where float32
+    rounding alone moves the plain step by up to ONE_STEP_ATOL: the float32
+    plain step is also run from 8 copies of the states whose joint
+    positions and velocities each move by at most one float32 ulp, and each
+    env's envelope is the furthest any of these float32 plain steps lies
+    from the float64 plain step.  The kernel must lie within ONE_STEP_ATOL
+    plus that envelope of the float64 plain step, env by env.  For each
+    field it prints the largest and the mean over envs of kernel - float32
+    plain, kernel - float64 plain, float32 - float64 plain and the float32
+    plain's own spread under the ulp moves, the envs past the tolerance,
+    and those envs one by one.  (Its differences stay out of the kernel
+    line's max_abs_err, which holds the comparisons at the tolerance.)"""
+    import torch
+
+    st, ep, act = states
+    sk, _, rk = step.launch(st, act, ep)
+    s32, _, r32 = step.plain(st, act, ep)
+    s64, _, r64 = step.plain(st, act, ep, dtype=torch.float64)
+    gen = torch.Generator(device=st.joint_pos.device).manual_seed(0)
+
+    def ulp(x):
+        d = torch.randint(-1, 2, x.shape, generator=gen, device=x.device)
+        return torch.where(d > 0, torch.nextafter(x, torch.full_like(x, math.inf)),
+                           torch.where(d < 0, torch.nextafter(x, torch.full_like(x, -math.inf)), x))
+
+    moved = [step.plain(st.replace(joint_pos=ulp(st.joint_pos), joint_vel=ulp(st.joint_vel)),
+                        act, ep) for _ in range(8)]
+    torch.cuda.synchronize()
+    env_err = lambda a, b: (a.double() - b.double()).abs().reshape(B, -1).amax(1)
+    get = lambda k, s, r: r.foot_pos if k == "foot_pos" else getattr(s, k)
+    bad = []
+    for k, tol in ONE_STEP_ATOL.items():
+        a, b, c = get(k, sk, rk), get(k, s32, r32), get(k, s64, r64)
+        if not a.numel():
+            continue
+        k32, k64, p = env_err(a, b), env_err(a, c), env_err(b, c)
+        spread, envelope = torch.zeros_like(p), p.clone()
+        for s_, _, r_ in moved:
+            spread = torch.maximum(spread, env_err(get(k, s_, r_), b))
+            envelope = torch.maximum(envelope, env_err(get(k, s_, r_), c))
+        mm = lambda x: f"{x.max().item():.4g}/{x.mean().item():.4g}"
+        log(f"{name} B={B} {k} (tol {tol:g}), max/mean over envs: kernel - float32 plain "
+            f"{mm(k32)}, kernel - float64 plain {mm(k64)}, float32 - float64 plain {mm(p)}, "
+            f"float32 plain's spread under 1-ulp input moves {mm(spread)}; envs past tol: "
+            f"kernel - float32 {int((k32 > tol).sum())}, kernel - float64 "
+            f"{int((k64 > tol).sum())}, float32 - float64 {int((p > tol).sum())}, float32 "
+            f"spread {int((spread > tol).sum())}; kernel further from float64 than the float32 "
+            f"plain in {int((k64 > p).sum())} envs")
+        for i in ((k32 > tol) | (k64 > tol) | (spread > tol)).nonzero().flatten().tolist()[:8]:
+            log(f"  env {i} {k}: kernel - float32 {k32[i].item():.4g}, kernel - float64 "
+                f"{k64[i].item():.4g}, float32 - float64 {p[i].item():.4g}, float32 spread "
+                f"{spread[i].item():.4g}, envelope {envelope[i].item():.4g}")
+        over = k64 - envelope - tol
+        if over.max().item() > 0:
+            bad.append(f"{k} by {over.max().item():.3g} in {int((over > 0).sum())} envs")
+    if bad:
+        fail(f"{name}: the kernel lies further from the float64 plain than ONE_STEP_ATOL beyond "
+             f"the float32 plain's envelope: {'; '.join(bad)}")
 
 
 def maxabs(x) -> float:
@@ -370,15 +512,18 @@ def zero_launch_counts():
     pk.DecimatedEnvStep.fixed_launches = pk.EnvStep.fixed_launches = 0
 
 
-def training_path(dev, task, seed, iters, envs=FLEET):
+def training_path(dev, task, seed, iters, envs=FLEET, check=None):
     """``iters`` iterations of PPO on ``task`` at its training recipe
     (``envs`` envs, from scratch) through the task registry and
     OnPolicyRunner.learn, then a save/load round trip.  On a generated
-    terrain the curriculum must have moved some env's level, within [0,
-    num_rows).  Returns the launches of the physics route of the task (B1
-    flat, B2 rough, "fixed" on a fixed base; their torques-in route, one
-    launch per substep, with the actuator network) in the learn call; no
-    other route may launch."""
+    terrain every level must lie in [0, num_rows) and the curriculum must
+    have moved some env's level, unless the task is one of
+    CURRICULUM_WAIVED and the run shows its cause.  ``check(runner, rows)``
+    adds the task's own checks on the runner and its metrics rows.  Returns
+    the launches of the physics route of the task (B1 flat, B2 rough,
+    "fixed" on a fixed base; their torques-in route, one launch per substep,
+    with the actuator network) in the learn call; no other route may
+    launch."""
     import tempfile
 
     import torch
@@ -431,13 +576,23 @@ def training_path(dev, task, seed, iters, envs=FLEET):
             levels = runner.env_state.terrain_levels
             moved = int((levels != levels0).sum())
             lo, hi = int(levels.min()), int(levels.max())
+            ended = sum(r["episodes_done"] for r in rows)
             log(f"terrain curriculum: {moved} of {env.num_envs} envs changed level; levels "
                 f"{lo}..{hi} (rows {env.max_terrain_level}), mean "
-                + " -> ".join(f"{r['terrain_level']:.3f}" for r in rows))
+                + " -> ".join(f"{r['terrain_level']:.3f}" for r in rows)
+                + f"; {ended:g} episodes ended, starting levels {int(levels0.min())}.."
+                f"{int(levels0.max())}")
             if moved == 0:
-                fail("the rough training path moved no env's terrain level")
+                why = CURRICULUM_WAIVED.get(task)
+                shown = {"no episode ended": ended == 0,
+                         "every env started on the bottom row": int(levels0.max()) == 0}
+                if why is None or not shown[why]:
+                    fail(f"the {task} training path moved no env's terrain level")
+                log(f"{task}: no level moved, as expected here: {why}")
             if lo < 0 or hi >= env.max_terrain_level:
                 fail(f"terrain levels {lo}..{hi} outside [0, {env.max_terrain_level})")
+        if check is not None:
+            check(runner, rows)
         steady = rows[1:] or rows
         col = sum(r["collection_s"] for r in steady) / len(steady)
         upd = sum(r["update_s"] for r in steady) / len(steady)
@@ -680,12 +835,12 @@ def elspider_path(dev, stats):
     import torch
 
     from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
-    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, elspider_step,
-                                                                    near_standing)
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, near_standing,
+                                                                    task_step)
     from extended_legged_gym_tpu_torch.scripts.eval_policy import evaluate
 
     t0 = time.perf_counter()
-    step = elspider_step(dev)
+    step = task_step("elspider_air_flat", dev)
     m, h = step.model, STAND_HEIGHT["elspider_air"]
     log(f"ElSpider B1 (nb={m.nb} nj={m.nj} ng={m.ng} nf={step.nf}) block of {pk.ENVS_PER_BLOCK} "
         f"envs: {pk.block_shared_bytes(m.nb, m.nj, m.ng, step.nf)} bytes of shared memory")
@@ -879,6 +1034,174 @@ def cyberdog2_path(dev, stats):
     train = training_path(dev, "cyber2_walk", 1, CYBER_ITERS)
     phase_done("CyberDog2 training path", t0)
     return err, train
+
+
+def route_of(env):
+    """The launch counter of ``env``'s fused physics step."""
+    return "fixed" if env.model.fix_base else "B2" if env.decimated_step.rough else "B1"
+
+
+def family_kernels(dev, stats):
+    """Each new (regime, tables) pair of FAMILY_KERNELS against its plain
+    version (float64: the light legs; an env where float32 and float64 part
+    is held to float32, as compare_one_step does) at the fleet from
+    near-standing states (B2 on its own task's grid above the spawn
+    origins), each block's shared
+    memory, the 25-step drift at FAMILY_DRIFT_B reported, two launches bit
+    for bit at the fleet; then the fixed-base regime with the hanging
+    hexapod's tables from the hang config's initial states (random actions;
+    the feet in contact counted, the base unchanged bit for bit after 1 and
+    25 steps), with its base held at HANG_LOADED_Z (legs loaded), and held
+    at HANG_TIGHT_Z (track_float32).  ms,
+    plain ms and bound of each go into ``stats[(route, robot)]``.  Returns
+    the largest difference against plain of each pair."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (at_rest, task_env,
+                                                                    task_states)
+
+    t0 = time.perf_counter()
+    errs = {}
+    for route, task in FAMILY_KERNELS:
+        env = task_env(task, dev, FLEET)
+        step, m, robot = env.decimated_step, env.model, env.cfg.asset.name
+        name = f"{route} {robot}"
+        if route_of(env) != route:
+            fail(f"{task}'s physics step is not {route}")
+        log(f"{name} (nb={m.nb} nj={m.nj} ng={m.ng} nf={step.nf}) block of {pk.ENVS_PER_BLOCK} "
+            f"envs: {pk.block_shared_bytes(m.nb, m.nj, m.ng, step.nf, step.rough)} bytes of "
+            f"shared memory" + (f"; {task}'s grid {env.terrain.shape[0]} x "
+                                f"{env.terrain.shape[1]}" if step.rough else ""))
+        stats[(route, robot)] = {}
+        errs[(route, robot)] = compare_one_step(name, step, FLEET,
+                                                task_states(env, FLEET, FLEET, dev),
+                                                stats[(route, robot)], torch.float64)
+        drift_report(name, step, FAMILY_DRIFT_B, task_states(env, FAMILY_DRIFT_B, 7, dev))
+        bit_identical(name, step, FLEET, task_states(env, FLEET, 3, dev))
+    phase_done("family kernels vs plain", t0)
+
+    t0 = time.perf_counter()
+    env = task_env("foot_track_elspider_air_hang", dev, FLEET)
+    step, m = env.decimated_step, env.model
+    if route_of(env) != "fixed":
+        fail("the hanging hexapod's physics step is not the fixed-base regime")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s0 = env.reset_all(seed=0)
+    st, ep = s0.phys, s0.env_params
+    act = torch.randn(FLEET, m.nj, device=dev, generator=gen)
+    feet = torch.as_tensor(m.foot_geom, device=dev)
+    stats[("fixed", "elspider_air")] = {}
+    err = compare_one_step("fixed elspider_air (hang)", step, FLEET, (st, ep, act),
+                           stats[("fixed", "elspider_air")], torch.float64)
+    sk, _, rk = step.launch(st, act, ep)
+    base_unchanged("fixed elspider_air one step", st, sk)
+    for _ in range(24):
+        sk, _, rk = step.launch(sk, act, ep)
+    base_unchanged("fixed elspider_air 25 control steps", st, sk)
+    touch = (rk.geom_forces[:, feet, 2] > 1.0).sum().item()
+    log(f"hanging hexapod at {float(st.base_pos[0, 2]):.3f} m: feet in contact after 1 step "
+        f"{int((step.launch(st, act, ep)[2].geom_forces[:, feet, 2] > 1.0).sum())}, after 25 "
+        f"steps {int(touch)} of {FLEET * m.num_feet}")
+    loaded = at_rest(m, FLEET, 5, dev,
+                     torch.tensor([0.0, 0.0, HANG_LOADED_Z], device=dev).expand(FLEET, 3))
+    lst, lep, lact = loaded
+    fz = step.plain(lst, lact, lep)[2].geom_forces[:, feet, 2]
+    log(f"hanging hexapod held at {HANG_LOADED_Z} m: {int((fz > 1.0).sum())} of "
+        f"{FLEET * m.num_feet} feet loaded (mean {fz.mean().item():.1f} N)")
+    err = max(err, compare_one_step("fixed elspider_air (loaded)", step, FLEET, loaded, {},
+                                    torch.float64))
+    base_unchanged("fixed elspider_air loaded", lst, step.launch(lst, lact, lep)[0])
+    bit_identical("fixed elspider_air", step, FLEET, loaded)
+    tight = at_rest(m, FLEET, 5, dev,
+                    torch.tensor([0.0, 0.0, HANG_TIGHT_Z], device=dev).expand(FLEET, 3))
+    track_float32(f"fixed elspider_air at {HANG_TIGHT_Z} m", step, FLEET, tight)
+    errs[("fixed", "elspider_air")] = err
+    log("no single PyTorch call computes this step; library_ms is null")
+    phase_done("hanging hexapod fixed base vs plain", t0)
+    return errs
+
+
+def family_training(dev, launches):
+    """FAMILY_ITERS PPO iterations at the fleet of each FAMILY_TRAIN task
+    through the registry (training_path: its route exactly FAMILY_ITERS x
+    24, the others 0).  The teacher's and the student's critic must read
+    the 235-wide privileged observation; Cassie's termination episode sum
+    must be finite, and non-zero where an episode ended.  Adds each task's
+    launches to ``launches[(route, robot)]``."""
+    from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
+
+    def priv_critic(runner, rows):
+        width = runner.network.critic[0].in_features
+        log(f"critic input {width} (privileged observation {runner.env.num_privileged_obs}), "
+            f"actor input {runner.network.actor[0].in_features}")
+        if width != 235 or runner.env_state.privileged_obs.shape[1] != 235:
+            fail(f"the critic reads {width} inputs, not the 235-dim privileged observation")
+
+    def termination(runner, rows):
+        done = sum(r["episodes_done"] for r in rows)
+        term = [r.get("episode/rew_termination", float("nan")) for r in rows]
+        if not all(math.isfinite(x) for x in term):
+            fail(f"cassie's termination episode sum is not finite: {term}")
+        if done == 0:
+            log("cassie: no env terminated in these iterations")
+        else:
+            log(f"cassie: {done:g} episodes ended; termination episode sums {term}")
+            if not any(x != 0.0 for x in term):
+                fail("cassie's episodes ended with a zero termination sum")
+
+    checks = {"anymal_c_rough_teacher": priv_critic, "anymal_c_student": priv_critic,
+              "cassie": termination}
+    for task in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        cfg, _ = task_registry.get_cfgs(task)
+        robot, route = cfg.asset.name, ("fixed" if cfg.asset.fix_base_link else
+                                        "B2" if cfg.terrain.mesh_type != "plane" else "B1")
+        n = training_path(dev, task, 1, FAMILY_ITERS, envs=FLEET, check=checks.get(task))
+        launches[(route, robot)] = launches.get((route, robot), 0) + n
+        phase_done(f"{task} training path", t0)
+
+
+def family_stepping(dev, launches):
+    """Each FAMILY_STEP task through the registry at the fleet, FAMILY_STEPS
+    control steps of random actions: its route exactly FAMILY_STEPS
+    launches, the others 0, finite observations and rewards.  Adds the
+    launches to ``launches[(route, robot)]``."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for task in FAMILY_STEP:
+        args = get_args(argv=["--task", task, "--num_envs", str(FLEET), "--device", str(dev)])
+        env, _ = task_registry.make_env(task, args)
+        route = route_of(env)
+        with torch.no_grad():
+            state = env.reset_all(seed=0)
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            rew = []
+            for _ in range(FAMILY_STEPS):
+                state = env.step(state, torch.randn(FLEET, env.num_actions, device=dev,
+                                                    generator=gen))
+                rew.append(state.rew)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        rew = torch.stack(rew)
+        others = {k: v for k, v in counts.items() if k != route}
+        log(f"{task}: {FAMILY_STEPS} control steps at {FLEET} envs, obs {env.num_obs}, "
+            f"commands {tuple(state.commands.shape)}: {route} launches={counts[route]}, others "
+            f"{others}; reward mean {rew.mean().item():.4g}, resets "
+            f"{int(state.reset_buf.sum())}")
+        if counts[route] != FAMILY_STEPS or any(others.values()):
+            fail(f"{task} launched {route} {counts[route]} times (want {FAMILY_STEPS}) and "
+                 f"others {others}")
+        if not bool(torch.isfinite(rew).all()) or not bool(torch.isfinite(state.obs).all()):
+            fail(f"non-finite rewards or observations stepping {task}")
+        key = (route, env.cfg.asset.name)
+        launches[key] = launches.get(key, 0) + counts[route]
+    phase_done("family stepping", t0)
 
 
 def extensions_path(dev):
@@ -1200,7 +1523,13 @@ def main():
     cyber_stats = {}
     cyber_err, cyber_launches = cyberdog2_path(dev, cyber_stats)
 
-    # ---------------- 20. flat evaluation ----------------
+    # ---------------- 20-22. the LeggedRobot family ----------------
+    family_stats, family_launches = {}, {}
+    family_err = family_kernels(dev, family_stats)
+    family_training(dev, family_launches)
+    family_stepping(dev, family_launches)
+
+    # ---------------- 23. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -1213,7 +1542,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 21. timing ----------------
+    # ---------------- 24. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -1223,28 +1552,37 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 22. result ----------------
+    # ---------------- 25. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
+    fam = lambda route, robot: family_launches.get((route, robot), 0)
+    family_entries = tuple(
+        (f"{'flat' if route == 'B1' else 'rough'}_decimated_physics_step_{robot}",
+         fam(route, robot), family_err[(route, robot)], family_stats[(route, robot)][FLEET])
+        for route, robot in family_err if route != "fixed")
     for name, launches, err, ks in (
             ("flat_decimated_physics_step",
-             flat_launches + train_launches + distill_launches + ext_launches, flat_err,
-             flat_stats[4096]),
-            ("flat_decimated_physics_step_elspider_air", elspider_launches, elspider_err,
-             elspider_stats[4096]),
+             flat_launches + train_launches + distill_launches + ext_launches
+             + fam("B1", "anymal_c"), flat_err, flat_stats[4096]),
+            ("flat_decimated_physics_step_elspider_air",
+             elspider_launches + fam("B1", "elspider_air"), elspider_err, elspider_stats[4096]),
             ("flat_physics_substep_sea_route", sea_launches, sea_err, sea_stats[FLEET]),
             ("fixed_base_decimated_physics_step_franka", franka_launches, franka_err,
              franka_stats[FRANKA_FLEET]),
             ("flat_decimated_physics_step_cyberdog2", cyber_launches, cyber_err,
              cyber_stats[CYBER_B]),
+            ("fixed_base_decimated_physics_step_elspider_air", fam("fixed", "elspider_air"),
+             family_err[("fixed", "elspider_air")], family_stats[("fixed", "elspider_air")][FLEET]),
             ("rough_decimated_physics_step",
-             rough_launches + ray_launches + rough_train_launches + est_launches, rough_err,
-             rough_stats[4096]),
+             rough_launches + ray_launches + rough_train_launches + est_launches
+             + fam("B2", "anymal_c"), rough_err, rough_stats[4096]),
             ("flat_physics_substep_v_route", v_launches["flat_v"], v_err["flat_v"],
              v_stats["flat_v"][V_FLAT_B]),
             ("rough_physics_substep_v_route", v_launches["rough_v"], v_err["rough_v"],
-             v_stats["rough_v"][V_ROUGH_B])):
+             v_stats["rough_v"][V_ROUGH_B])) + family_entries:
+        if launches <= 0:
+            fail(f"{name} was launched no time on its paths")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches, "max_abs_err": err, "ms": ks["ms"],
                         "plain_ms": ks["plain_ms"], "bound_ms": ks["bound_ms"],

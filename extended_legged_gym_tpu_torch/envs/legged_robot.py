@@ -19,7 +19,9 @@ ABA engine, which the port's kernel follows.
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
   dof vel, actions] with scales and clipping;
-* rewards: per-term scales × dt, ``only_positive_rewards`` clip;
+* rewards: per-term scales × dt, ``only_positive_rewards`` clip, then the
+  ``termination`` term (scaled by dt, never staged, with its own episode
+  sum) added after the clip;
 * terminations: contact force > 1 N on a termination geom, non-finite state,
   or timeout; non-finite values are replaced by ``nan_to_num``;
 * resets re-draw dof pos in [0.5, 1.5]×default, root velocities in ±0.5
@@ -56,7 +58,10 @@ Semantics kept from the JAX env, reference quirks included:
   ``step`` only;
 * ``episode_metrics``: scalar sums over the episodes that ended (count,
   return, length and each term's sum over ``max_episode_length_s``), read and
-  cleared by the runner.
+  cleared by the runner;
+* privileged observations (``env.num_privileged_obs``): after each step the
+  noise-free observation, cut or zero-padded to that width and clipped, in
+  ``EnvState.privileged_obs`` (zeros after ``reset_all``; ``None`` without).
 
 The env draws from its own ``torch.Generator``; each kind of draw in a step
 has its own method (``_draw_push_vel``, ``_draw_obs_noise``,
@@ -64,8 +69,7 @@ has its own method (``_draw_push_vel``, ``_draw_obs_noise``,
 JAX env's draws.
 
 Not ported yet (the constructor raises): triangle-mesh contacts, heading
-commands, command curriculum, privileged observations, a termination
-reward.
+commands, command curriculum.
 """
 from __future__ import annotations
 
@@ -128,6 +132,12 @@ class EnvState:
     terrain_types: Optional[torch.Tensor] = None     # [B] int64
     reward_stage: Optional[torch.Tensor] = None      # scalar int64 (staged rewards)
     actuator_hidden: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # (h, c) [B, nj, L, H]
+    privileged_obs: Optional[torch.Tensor] = None    # [B, num_privileged_obs]
+    # EMA-filtered base-frame accelerations and the last step's world root
+    # velocities (kept by the envs that read them: robots/anymal_c_variants.py)
+    base_lin_acc: Optional[torch.Tensor] = None      # [B, 3]
+    base_ang_acc: Optional[torch.Tensor] = None      # [B, 3]
+    last_root_vel: Optional[torch.Tensor] = None     # [B, 6]
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -149,6 +159,7 @@ class LeggedRobot:
         self.num_envs = cfg.env.num_envs
         self.num_actions = cfg.env.num_actions
         self.num_obs = cfg.env.num_observations
+        self.num_privileged_obs = cfg.env.num_privileged_obs
         self.dt = cfg.control.decimation * cfg.sim.dt
         self.max_episode_length_s = cfg.env.episode_length_s
         self.max_episode_length = int(np.ceil(self.max_episode_length_s / self.dt))
@@ -264,8 +275,6 @@ class LeggedRobot:
             "triangle-mesh contacts (terrain.trimesh_contacts)": tc.trimesh_contacts,
             "commands.heading_command": cfg.commands.heading_command,
             "commands.curriculum": cfg.commands.curriculum,
-            "rewards.scales.termination": cfg.rewards.scales.termination != 0,
-            "env.num_privileged_obs": cfg.env.num_privileged_obs is not None,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -303,7 +312,8 @@ class LeggedRobot:
     def _prepare_reward_functions(self):
         """Active terms (non-zero at some stage) and their scales times dt,
         one row per stage: ``reward_scale_table`` [stages, terms];
-        ``reward_scales`` is stage 0's row."""
+        ``reward_scales`` is stage 0's row.  ``termination`` stays out of the
+        table: ``termination_scale`` is its stage-0 scale times dt."""
         scales = class_to_dict(self.cfg.rewards.scales)
         multi = self.cfg.rewards.multi_stage_rewards
         n_stages = self.cfg.rewards.reward_max_stage + 1 if multi else 1
@@ -324,6 +334,10 @@ class LeggedRobot:
             [[at_stage(scales[n], k) * self.dt for n in names] for k in range(n_stages)],
             dtype=torch.float32, device=self.device).reshape(n_stages, len(names))
         self.reward_scales = self.reward_scale_table[0]
+        term = scales.get("termination", 0.0)
+        self.termination_scale = float(at_stage(term, 0)) * self.dt if term else 0.0
+        # the terms with an episode sum
+        self.episode_terms = names + ["termination"] * (self.termination_scale != 0)
 
     def _make_noise_scale_vec(self) -> np.ndarray:
         """Per-observation noise amplitude: the scales times ``noise_level``
@@ -383,7 +397,7 @@ class LeggedRobot:
         return 2.0 * torch.rand(shape, generator=self.generator, device=self.device) - 1.0
 
     def zero_episode_metrics(self) -> Dict[str, torch.Tensor]:
-        keys = ["count", "return_sum", "length_sum"] + ["rew_" + n for n in self.reward_names]
+        keys = ["count", "return_sum", "length_sum"] + ["rew_" + n for n in self.episode_terms]
         return {k: torch.zeros((), device=self.device) for k in keys}
 
     # ------------------------------------------------------------------ reset
@@ -414,14 +428,15 @@ class LeggedRobot:
             obs=z(B, self.num_obs), rew=z(B),
             reset_buf=torch.zeros(B, dtype=torch.bool, device=dev),
             time_out_buf=torch.zeros(B, dtype=torch.bool, device=dev),
-            episode_sums={n: z(B) for n in self.reward_names},
+            episode_sums={n: z(B) for n in self.episode_terms},
             episode_return=z(B), env_origins=env_origins,
             common_step=torch.zeros((), dtype=torch.int64, device=dev),
             episode_metrics=self.zero_episode_metrics(),
             measured_heights=z(B, self.num_height_points), terrain_levels=levels,
             terrain_types=types, reward_stage=torch.zeros((), dtype=torch.int64, device=dev),
             actuator_hidden=(self.actuator_net.init_hidden((B, self.num_dof))
-                             if self.actuator_net is not None else None))
+                             if self.actuator_net is not None else None),
+            privileged_obs=z(B, self.num_privileged_obs) if self.num_privileged_obs else None)
         state = self._refresh_derived(state)
         return state.replace(obs=self._compute_observations(state))
 
@@ -551,7 +566,11 @@ class LeggedRobot:
         if self.cfg.noise.add_noise:
             obs = obs + self._draw_obs_noise(obs.shape) * self.noise_scale_vec
         clip_obs = self.cfg.normalization.clip_observations
-        return state.replace(obs=torch.clamp(obs, -clip_obs, clip_obs))
+        state = state.replace(obs=torch.clamp(obs, -clip_obs, clip_obs))
+        if self.num_privileged_obs:
+            state = state.replace(privileged_obs=torch.clamp(
+                self._compute_privileged_observations(state), -clip_obs, clip_obs))
+        return state
 
     def _check_termination(self, state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
         if len(self.termination_geoms):
@@ -613,10 +632,12 @@ class LeggedRobot:
             episode_sums={k: zero(v) for k, v in state.episode_sums.items()})
 
     # ------------------------------------------------------------------ obs
-    def _compute_observations(self, state) -> torch.Tensor:
+    def _proprio_obs(self, state) -> torch.Tensor:
+        """The proprioceptive part [lin vel, ang vel, projected gravity,
+        commands, dof pos, dof vel, actions] with its scales."""
         os_ = self.cfg.normalization.obs_scales
         cmd_scale = torch.tensor([os_.lin_vel, os_.lin_vel, os_.ang_vel], device=self.device)
-        parts = [
+        return torch.cat([
             state.base_lin_vel * os_.lin_vel,
             state.base_ang_vel * os_.ang_vel,
             state.projected_gravity,
@@ -624,13 +645,23 @@ class LeggedRobot:
             (state.phys.joint_pos - self.default_dof_pos) * os_.dof_pos,
             state.phys.joint_vel * os_.dof_vel,
             state.actions,
-        ]
+        ], dim=-1)
+
+    def _compute_observations(self, state) -> torch.Tensor:
+        os_ = self.cfg.normalization.obs_scales
+        parts = [self._proprio_obs(state)]
         if self.num_height_points:
             parts.append(torch.clamp(state.phys.base_pos[:, 2:3] - 0.5 - state.measured_heights,
                                      -1.0, 1.0) * os_.height_measurements)
         if self.raycaster is not None and self.cfg.raycaster.attach_to_obs:
             parts.append(self.raycaster.observations(state.phys.base_pos, state.phys.base_quat))
         return torch.cat(parts, dim=-1)
+
+    def _compute_privileged_observations(self, state) -> torch.Tensor:
+        """The noise-free observation, cut or zero-padded to
+        ``num_privileged_obs``."""
+        obs, n = self._compute_observations(state), self.num_privileged_obs
+        return obs[:, :n] if obs.shape[-1] >= n else F.pad(obs, (0, n - obs.shape[-1]))
 
     # ------------------------------------------------------------------ rewards
     def _contact_context(self, s):
@@ -659,13 +690,16 @@ class LeggedRobot:
         ctx = self._contact_context(state)
         state = state.replace(last_contacts=ctx["contact"])
         rew, terms = self._reward_sum(state, ctx, state.reward_stage)
+        if self.termination_scale:
+            terms["termination"] = self._reward_termination(state, ctx) * self.termination_scale
+            rew = rew + terms["termination"]
         sums = {k: v + terms[k] for k, v in state.episode_sums.items()}
         state = state.replace(feet_air_time=ctx["feet_air_time"] * ~ctx["contact_filt"],
                               feet_contact_time=ctx["feet_contact_time"] * ctx["contact_filt"],
                               episode_sums=sums)
         return state, rew
 
-    # --- reward terms the flat sampling-MPC, rough, flat and ElSpider configs scale ---
+    # --- the reward term library ---
     speed_min = 0.1
     def _reward_lin_vel_z(self, s, ctx):
         return torch.square(s.base_lin_vel[:, 2])
@@ -683,8 +717,29 @@ class LeggedRobot:
             ground = sample_height(self.terrain, s.phys.base_pos[:, :2])
         return torch.square(s.phys.base_pos[:, 2] - ground - self.cfg.rewards.base_height_target)
 
+    def _reward_base_foot_height(self, s, ctx):
+        """Base height above the mean height of the feet in contact (the
+        base's own height less the target where none is)."""
+        contact = ctx["feet_contact_time"] > 1e-3
+        n = contact.sum(dim=1)
+        foot_sum = torch.where(contact, s.foot_positions[:, :, 2], 0.0).sum(dim=1)
+        target = self.cfg.rewards.base_height_target
+        ground = torch.where(n > 0, foot_sum / n.clamp(min=1), s.phys.base_pos[:, 2] - target)
+        return torch.square(s.phys.base_pos[:, 2] - ground - target)
+
     def _reward_torques(self, s, ctx):
         return torch.sum(torch.square(s.torques), dim=1)
+
+    def _reward_dof_vel(self, s, ctx):
+        return torch.sum(torch.square(s.phys.joint_vel), dim=1)
+
+    def _reward_dof_vel_limits(self, s, ctx):
+        lim = self.model.torch(self.device)["dof_vel_limits"] * self.cfg.rewards.soft_dof_vel_limit
+        return torch.sum((s.phys.joint_vel.abs() - lim).clamp(min=0.0, max=1.0), dim=1)
+
+    def _reward_torque_limits(self, s, ctx):
+        lim = self.torque_limits * self.cfg.rewards.soft_torque_limit
+        return torch.sum((s.torques.abs() - lim).clamp(min=0.0), dim=1)
 
     def _reward_dof_acc(self, s, ctx):
         return torch.sum(torch.square((s.last_dof_vel - s.phys.joint_vel) / self.dt), dim=1)
@@ -697,6 +752,42 @@ class LeggedRobot:
             return torch.zeros(s.phys.base_pos.shape[0], device=self.device)
         f = s.geom_forces[:, self.penalised_geoms]
         return torch.sum((torch.linalg.norm(f, dim=-1) > 0.1).to(torch.float32), dim=1)
+
+    def _feet_stumbling(self, s) -> torch.Tensor:
+        """Feet [B, nf] whose horizontal contact force exceeds 5x the vertical."""
+        f = s.geom_forces[:, self.feet_geoms]
+        return torch.linalg.norm(f[..., :2], dim=-1) > 5 * f[..., 2].abs()
+
+    def _reward_feet_stumble(self, s, ctx):
+        return self._feet_stumbling(s).any(dim=1).to(torch.float32)
+
+    def _reward_feet_stumble_liftup(self, s, ctx):
+        return torch.sum(self._feet_stumbling(s) * s.foot_velocities[..., 2], dim=1)
+
+    def _reward_jump_air(self, s, ctx):
+        """Air time beyond 0.5 s summed over the airborne feet, past half
+        the feet."""
+        airborne = ~ctx["contact_filt"]
+        return (torch.sum(airborne * (ctx["feet_air_time"] - 0.5), dim=1)
+                - self.num_feet / 2).clamp(min=0.0)
+
+    def _reward_four_footup(self, s, ctx):
+        return 0.1 * (s.geom_forces[:, self.feet_geoms, 2] < 1.0).all(dim=1).to(torch.float32)
+
+    def _reward_feet_contact_forces(self, s, ctx):
+        f = torch.linalg.norm(s.geom_forces[:, self.feet_geoms], dim=-1)
+        return torch.sum((f - self.cfg.rewards.max_contact_force).clamp(min=0.0), dim=1)
+
+    def _reward_stand_still(self, s, ctx):
+        still = torch.linalg.norm(s.commands[:, :2], dim=1) < self.speed_min
+        return torch.sum((s.phys.joint_pos - self.default_dof_pos).abs(), dim=1) * still
+
+    def _reward_termination(self, s, ctx):
+        return (s.reset_buf & ~s.time_out_buf).to(torch.float32)
+
+    def _reward_no_fly(self, s, ctx):
+        """At least one foot pressing the ground by more than 0.1 N."""
+        return ((s.geom_forces[:, self.feet_geoms, 2] > 0.1).sum(dim=1) >= 1).to(torch.float32)
 
     def _reward_feet_air_time(self, s, ctx):
         rew = torch.sum((ctx["feet_air_time"] - 0.5) * ctx["first_contact"], dim=1)

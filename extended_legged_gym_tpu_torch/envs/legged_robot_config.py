@@ -129,6 +129,9 @@ class RewardScalesCfg:
     feet_air_time: float = 1.0
     collision: float = -1.0
     feet_stumble: float = -0.0
+    feet_stumble_liftup: float = 0.0
+    jump_air: float = -0.0
+    four_footup: float = 0.0
     action_rate: float = -0.01
     stand_still: float = -0.0
 
@@ -139,6 +142,8 @@ class RewardsCfg:
     only_positive_rewards: bool = True
     tracking_sigma: float = 0.25
     soft_dof_pos_limit: float = 1.0
+    soft_dof_vel_limit: float = 1.0
+    soft_torque_limit: float = 1.0
     base_height_target: float = 1.0
     max_contact_force: float = 100.0
     # staged scales: a scale may be a list, one value per stage; the env's

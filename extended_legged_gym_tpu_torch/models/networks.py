@@ -197,17 +197,20 @@ def mask_carry(carry, dones: torch.Tensor):
 
 class ActorCritic(nn.Module):
     """Gaussian MLP actor + MLP critic with a state-independent learned std
-    (``log_std`` starts at ``log(init_noise_std)``).  ``generator`` seeds the
-    flax-style initialisation of every ``nn.Linear``."""
+    (``log_std`` starts at ``log(init_noise_std)``).  The critic reads
+    ``num_critic_obs`` inputs (a privileged observation), by default the
+    actor's ``num_obs``.  ``generator`` seeds the flax-style initialisation
+    of every ``nn.Linear``."""
 
     def __init__(self, num_obs: int, num_actions: int,
                  actor_hidden_dims: Sequence[int] = (512, 256, 128),
                  critic_hidden_dims: Sequence[int] = (512, 256, 128),
                  activation: str = "elu", init_noise_std: float = 1.0,
+                 num_critic_obs: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.actor = _mlp(num_obs, actor_hidden_dims, num_actions, activation)
-        self.critic = _mlp(num_obs, critic_hidden_dims, 1, activation)
+        self.critic = _mlp(num_critic_obs or num_obs, critic_hidden_dims, 1, activation)
         self.log_std = nn.Parameter(torch.full((num_actions,), math.log(init_noise_std)))
         for m in self.modules():
             if isinstance(m, nn.Linear):

@@ -5,7 +5,9 @@ One iteration lets the STUDENT act for ``num_steps_per_env`` steps (with
 ``exploration_std`` Gaussian noise on its actions; the recurrent student's
 carry is zeroed where an env reset), labels every pre-step observation with
 the frozen teacher, and behaviour-clones on the window
-(:class:`rl.distillation.Distillation`).  The env state and the carry run on
+(:class:`rl.distillation.Distillation`).  The teacher reads the env's
+privileged observation where it has one, else the observation.  The env
+state and the carry run on
 across iterations; the episode metrics start empty each iteration.  Every
 physics step is one launch of the env's fused step (B1 on flat ground).
 """
@@ -39,8 +41,7 @@ class DistillationRunner:
         self.num_steps_per_env = num_steps_per_env
         self.exploration_std = exploration_std
         self.recurrent = recurrent
-        # the port's env has no privileged observation: the teacher reads the obs
-        teacher_obs_dim = env.num_obs
+        teacher_obs_dim = env.num_privileged_obs or env.num_obs
         gen = torch.Generator().manual_seed(seed)
         if recurrent:
             net = StudentTeacherRecurrent(env.num_obs, teacher_obs_dim, env.num_actions,
@@ -75,6 +76,7 @@ class DistillationRunner:
         with torch.no_grad():
             for t in range(self.num_steps_per_env):
                 obs = es.obs
+                t_obs = es.privileged_obs if es.privileged_obs is not None else obs
                 if self.recurrent:
                     actions, carry = alg.act(obs, carry=carry)
                 else:
@@ -88,7 +90,7 @@ class DistillationRunner:
                 if self.recurrent:
                     carry = scale_carry(carry, 1.0 - done)
                 rows["s_obs"].append(obs)
-                rows["t_act"].append(self.teacher_policy(obs))   # the pre-step observation
+                rows["t_act"].append(self.teacher_policy(t_obs))   # the pre-step observation
                 rows["dones"].append(done)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -18,6 +18,9 @@ device value on the host; ``learn`` reads the metrics once per iteration.
   reward; after the PPO update the predictor takes one Adam step
   (``rnd_cfg["learning_rate"]``, no clipping) over the window's policy
   observations, with the normalizers as collection left them.
+* Privileged observations: where the env has them (``num_privileged_obs``)
+  the critic reads ``EnvState.privileged_obs``, unnormalized, and is sized
+  by it; the actor reads the (normalized) observation.
 * Symmetry: ``symmetry_cfg`` = {obs_perm, obs_signs, act_perm, act_signs,
   coef (0.5)} adds the mirror loss to ``ppo_update``.  The JAX runner passes
   it to the MLP update only and drops it silently for a recurrent policy;
@@ -85,16 +88,18 @@ class OnPolicyRunner:
         # on every device; action noise and minibatch permutations come from
         # a generator on the env's device
         init_gen = torch.Generator().manual_seed(seed)
+        critic_dim = env.num_privileged_obs or env.num_obs
         if self.recurrent:
             self.network = ActorCriticRecurrent(
                 env.num_obs, env.num_actions, pol.actor_hidden_dims, pol.critic_hidden_dims,
                 pol.activation, pol.init_noise_std, pol.rnn_hidden_size, pol.rnn_type,
-                generator=init_gen).to(self.device)
+                num_critic_obs=critic_dim, generator=init_gen).to(self.device)
             self.carries = self.initial_carries()
         else:
             self.network = ActorCritic(
                 env.num_obs, env.num_actions, pol.actor_hidden_dims, pol.critic_hidden_dims,
-                pol.activation, pol.init_noise_std, generator=init_gen).to(self.device)
+                pol.activation, pol.init_noise_std, num_critic_obs=critic_dim,
+                generator=init_gen).to(self.device)
             self.carries = None
         self.optimizer = Adam(self.network.parameters(), alg.max_grad_norm)
         self.symmetry = None
@@ -123,7 +128,7 @@ class OnPolicyRunner:
     # ------------------------------------------------------------------
     def _policy_io(self, es: EnvState, obs_norm: Optional[RunningNorm]):
         obs = obs_norm.normalize(es.obs) if obs_norm is not None else es.obs
-        return obs, obs
+        return obs, es.privileged_obs if es.privileged_obs is not None else obs
 
     def _forward(self, obs, critic_obs, carries):
         """``(mean, std, value, carries)`` of the policy (carries pass

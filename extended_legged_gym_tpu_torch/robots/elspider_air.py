@@ -1,13 +1,17 @@
-"""ElSpider Air hexapod task configs and env (port of the rough base and
-flat configs of ``robots/elspider_air.py``): 19 bodies, 18 joints, 46
-collision spheres, 6 feet.  The robot model is read in place from the JAX
-package's committed JSON, whose default joint angles the env uses."""
+"""ElSpider Air hexapod task configs and envs (port of
+``robots/elspider_air.py``): 19 bodies, 18 joints, 46 collision spheres, 6
+feet; the rough and flat tasks and the Raibert foot-tracking env.  The
+robot model is read in place from the JAX package's committed JSON, whose
+default joint angles the env uses."""
 from __future__ import annotations
 
 import os
 
+import torch
+
 from ..envs.legged_robot import LeggedRobot
 from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
+from ..utils.raibert_planner import RaibertHeuristic, RaibertHeuristicCfg
 from .anymal_c import _DATA
 
 # foot order of the model (alphabetical): 0 LB, 1 LF, 2 LM, 3 RB, 4 RF, 5 RM;
@@ -25,10 +29,10 @@ class ElSpider(LeggedRobot):
         return (sync + async_) * self._gait_active(s)
 
 def elspider_air_rough_cfg() -> LeggedRobotCfg:
-    """The rough base the flat task builds on.  Its ``trimesh`` terrain
-    without ``trimesh_contacts`` is the generated heightfield that B2
-    contacts, as ``anymal_c_rough``'s; the rough task is not registered
-    yet."""
+    """The rough task (253-dim observations with the height scan) on a 10
+    x 10 grid of 8 m subterrains, every env spawned on the easiest row.
+    Its ``trimesh`` terrain without ``trimesh_contacts`` is the generated
+    heightfield that B2 contacts, as ``anymal_c_rough``'s."""
     cfg = LeggedRobotCfg()
     cfg.env.num_envs = 4096
     cfg.env.num_actions = 18
@@ -87,3 +91,54 @@ def elspider_air_ppo_cfg() -> LeggedRobotCfgPPO:
     t = LeggedRobotCfgPPO()
     t.runner.experiment_name = "flat_elspider_air"
     return t
+
+
+class FootTrackElSpider(ElSpider):
+    """Foothold tracking: four reward terms track the closed-form Raibert
+    references (:class:`RaibertHeuristic`) of the base and the swing feet at
+    each env's time in its episode, tripod phases in the model's foot
+    order."""
+
+    def __init__(self, cfg, device="cuda"):
+        super().__init__(cfg, device=device)
+        pcfg = RaibertHeuristicCfg()
+        # hips in the model's foot order: LB, LF, LM, RB, RF, RM
+        pcfg.hip_offsets = [[-0.3, 0.25], [0.3, 0.25], [0.0, 0.28],
+                            [-0.3, -0.25], [0.3, -0.25], [0.0, -0.28]]
+        pcfg.foot_phases = [0.0, 0.0, 0.5, 0.5, 0.5, 0.0]     # (LB, LF, RM) | (LM, RB, RF)
+        pcfg.base_height = cfg.rewards.base_height_target
+        self.planner = RaibertHeuristic(pcfg)
+
+    def _contact_context(self, s):
+        """The base context and the step's references, computed once for the
+        four terms."""
+        t = s.episode_length.to(torch.float32) * self.dt
+        return dict(super()._contact_context(s), raibert=self.planner.references(
+            s.phys.base_pos, s.phys.base_quat, s.phys.base_lin_vel, s.commands, t))
+
+    def _reward_raibert_base_pos_track(self, s, ctx):
+        return self.planner.reward_base_pos_track(ctx["raibert"], s.phys.base_pos)
+
+    def _reward_raibert_foot_pos_track(self, s, ctx):
+        return self.planner.reward_foot_pos_track(ctx["raibert"], s.foot_positions)
+
+    def _reward_raibert_foot_pos_track_z(self, s, ctx):
+        return self.planner.reward_foot_pos_track_z(ctx["raibert"], s.foot_positions)
+
+    def _reward_raibert_foot_swing_contact(self, s, ctx):
+        return self.planner.reward_foot_swing_contact(ctx["raibert"], ctx["contact"])
+
+
+def foot_track_elspider_air_flat_cfg() -> LeggedRobotCfg:
+    """The flat task single-stage (each staged scale at its last value),
+    the gait term off, feet_slip -0.1 and the four Raibert tracking terms."""
+    cfg = elspider_air_flat_cfg()
+    cfg.rewards.multi_stage_rewards = False
+    sc = cfg.rewards.scales
+    sc.feet_slip = -0.1
+    sc.gait_2_step = 0.0
+    sc.raibert_base_pos_track = 0.5
+    sc.raibert_foot_pos_track = 1.0
+    sc.raibert_foot_pos_track_z = 1.0
+    sc.raibert_foot_swing_contact = 0.3
+    return cfg

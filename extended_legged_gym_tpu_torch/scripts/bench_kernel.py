@@ -17,15 +17,17 @@ root, for example against an older commit's source:
   python -m extended_legged_gym_tpu_torch.scripts.bench_kernel --source checkout/old.cu \
       --source extended_legged_gym_tpu_torch/csrc/physics_step.cu
 
-Without ``--source`` it times ``csrc/physics_step.cu``.  ``--robot
-elspider_air`` times B1 with the ElSpider Air hexapod's tables (19 bodies,
-18 joints, 46 spheres, 6 feet) instead, at the evaluation's 16 envs and the
-training fleet's 4096 (B2 is not run); ``--robot cyberdog2`` B1 with
-CyberDog2's (13 bodies, 12 joints, 37 spheres, 4 feet) at 4096; ``--robot
-franka`` the fixed-base regime with the Franka arm's (8 bodies, 7 joints,
-one sphere on the base, no feet) at 8 and 1024, from states at rest.  With
-several sources, each batch's outputs of every source are compared with the
-first source's bit for bit (``same_bits``).  Prints one JSON object.
+Without ``--source`` it times ``csrc/physics_step.cu``.  ``--task T`` (one
+or more) times the fused step of registered tasks instead, at ``--batches``
+(default 4096): B1 on a plane, B2 on the task's own curriculum grid from
+its spawn origins, the fixed-base regime from states at rest at the task's
+initial position; near-standing states stand at the robot's
+``STAND_HEIGHT``.  For example ``--task elspider_air_flat --batches 16
+4096`` (B1 with the hexapod's tables), ``--task cyberdog2_walk`` (B1 with
+CyberDog2's), ``--task franka --batches 8 1024`` (the fixed-base regime
+with the arm's).  With several sources, each batch's outputs of every
+source are compared with the first source's bit for bit (``same_bits``).
+Prints one JSON object.
 """
 import argparse
 import json
@@ -44,13 +46,13 @@ from extended_legged_gym_tpu_torch.scripts.eval_rough import eval_cfg
 
 FLAT_BATCHES = (1024, 776, 24, 8, 128, 97, 3, 2048)
 ROUGH_BATCHES = (32, 4096)
-ELSPIDER_BATCHES = (16, 4096)
-CYBERDOG2_BATCHES = (4096,)
-FRANKA_BATCHES = (8, 1024)
-# base heights at which near_standing's robots touch the ground (ANYmal-C
-# stands at ~0.5 m, ElSpider Air at its default pose at ~0.18 m, CyberDog2's
-# lowest sphere hangs 0.239 m below its base at the default pose)
-STAND_HEIGHT = {"anymal_c": 0.54, "elspider_air": 0.2, "cyberdog2": 0.23}
+# base heights at which near_standing's robots touch the ground: ANYmal-C
+# stands at ~0.5 m, ElSpider Air at its default pose at ~0.18 m; at the
+# default pose the lowest sphere hangs below the base by 0.239 m on
+# CyberDog2, 0.294-0.302 m on A1 (front feet lower), 0.314-0.324 m on Go2,
+# 0.497 m on ANYmal-B and 0.854 m on Cassie
+STAND_HEIGHT = {"anymal_c": 0.54, "elspider_air": 0.2, "cyberdog2": 0.23, "a1": 0.29,
+                "go2": 0.31, "anymal_b": 0.49, "cassie": 0.845}
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 
@@ -121,43 +123,59 @@ def at_rest(model, B, seed, device, origins=None):
     return st, ep, act
 
 
-def task_step(task, device):
-    """The fused control step (PD, 4 substeps) of a registered task's env."""
+def task_env(task, device, num_envs=1):
+    """A registered task's env at ``num_envs`` envs."""
     from extended_legged_gym_tpu_torch import robots  # noqa: F401
     from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
 
     cfg, _ = task_registry.get_cfgs(task)
-    cfg.env.num_envs = 1
-    return task_registry.make_env(task, env_cfg=cfg, device=device)[0].decimated_step
+    cfg.env.num_envs = num_envs
+    return task_registry.make_env(task, env_cfg=cfg, device=device)[0]
 
 
-def elspider_step(device):
-    """B1 with the ElSpider Air tables: the ``elspider_air_flat`` env's fused
-    control step."""
-    return task_step("elspider_air_flat", device)
+def task_step(task, device):
+    """The fused control step (PD, 4 substeps) of a registered task's env:
+    B1 on a plane, B2 on its generated grid, the fixed-base regime where
+    its base is fixed."""
+    return task_env(task, device).decimated_step
+
+
+def task_states(env, B, seed, device):
+    """States of ``B`` envs for ``env``'s fused step: on a fixed base at
+    rest at the task's initial position; else near-standing at the robot's
+    STAND_HEIGHT, above the env's spawn origins on a generated grid (the env
+    must have at least ``B`` envs there)."""
+    m = env.decimated_step.model
+    if m.fix_base:
+        origins = env.base_init_state[:3].expand(B, 3)
+        return at_rest(m, B, seed, device, origins)
+    origins = env.reset_all(seed=0).env_origins if env.custom_origins else None
+    return near_standing(m, B, seed, device, origins, STAND_HEIGHT[env.cfg.asset.name])
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", action="append", default=None)
     ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--robot", default="anymal_c",
-                    choices=["anymal_c", "elspider_air", "cyberdog2", "franka"])
+    ap.add_argument("--task", action="append", default=None)
+    ap.add_argument("--batches", type=int, nargs="+", default=[4096])
     args = ap.parse_args()
     sources = args.source or [pk.SOURCE]
     dev = torch.device("cuda")
-    if args.robot == "elspider_air":
-        runs = (("B1", elspider_step(dev), ELSPIDER_BATCHES, None),)
-    elif args.robot == "cyberdog2":
-        runs = (("B1", task_step("cyberdog2_walk", dev), CYBERDOG2_BATCHES, None),)
-    elif args.robot == "franka":
-        runs = (("fixed", franka_step(dev), FRANKA_BATCHES, None),)
+    # (name, fused step, batches, states(B) for that step)
+    if args.task:
+        envs = {t: task_env(t, dev, max(args.batches)) for t in args.task}
+        runs = tuple((t, envs[t].decimated_step, tuple(args.batches),
+                      lambda B, env=envs[t]: task_states(env, B, B, dev)) for t in args.task)
     else:
         flat = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1), device=dev).decimated_step
         renv = rough_env(max(ROUGH_BATCHES), dev)
         origins = renv.reset_all(seed=0).env_origins
-        runs = (("B1", flat, FLAT_BATCHES, None),
-                ("B2", renv.decimated_step, ROUGH_BATCHES, origins))
+        h = STAND_HEIGHT["anymal_c"]
+        runs = (("B1", flat, FLAT_BATCHES,
+                 lambda B: near_standing(flat.model, B, B, dev, height=h)),
+                ("B2", renv.decimated_step, ROUGH_BATCHES,
+                 lambda B: near_standing(renv.model, B, B, dev, origins, h)))
     libs, ptxas = {}, {}
     for src in sources:
         libs[src] = pk.load_library(src)
@@ -168,14 +186,11 @@ def main():
     bounds = {name: {} for name, _, _, _ in runs}
     same = {src: {name: {} for name, _, _, _ in runs} for src in sources[1:]}
     outs = ("out", "tau", "gf", "fpos", "fvel")
-    for name, step, batches, org in runs:
+    for name, step, batches, states in runs:
         for B in batches:
             bms, by, _, _ = launch_bound(step, B)
             bounds[name][B] = {"bound_ms": bms, "bound_by": by}
-            if step.model.fix_base:
-                st, ep, act = at_rest(step.model, B, B, dev, org)
-            else:
-                st, ep, act = near_standing(step.model, B, B, dev, org, STAND_HEIGHT[args.robot])
+            st, ep, act = states(B)
             bufs = step.pack(st, act, ep)          # the kernel alone is timed
             for src in sources + sources[::-1]:
                 ms[src][name][B].append(cuda_ms(
@@ -190,7 +205,8 @@ def main():
                     same[src][name][B] = all(torch.equal(a, b) for a, b in zip(first, got))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "robot": args.robot, "reps": args.reps, "bounds": bounds,
+    print(json.dumps({"card": smi, "tasks": args.task or ["anymal_c"], "reps": args.reps,
+                      "bounds": bounds,
                       "kernels": [
         {"source": src, "ptxas": ptxas[src], "shared_workspace": libs[src].shared_workspace,
          "ms_per_launch": ms[src], "same_bits": same.get(src)} for src in sources]}))

@@ -6,7 +6,11 @@
   TRAIN_ROUGH_r5's (the terrain curriculum, the [512, 256, 128] networks);
   ``--task anymal_c_flat_sea`` runs the SEA actuator network (one torques-in
   B1 launch per substep), ``--task elspider_air_flat --seed 1`` the hexapod,
-  ``--task franka --num_envs 1024`` the arm on the fixed-base regime;
+  ``--task franka --num_envs 1024`` the arm on the fixed-base regime; any
+  other registered PPO task the same way, e.g. ``--task cassie`` (B2 on the
+  biped's grid), ``--task anymal_c_rough_teacher`` (the critic on the
+  privileged observation) or ``--task foot_track_elspider_air_hang`` (the
+  hexapod on the fixed-base regime);
 * ``ppo_recurrent``: the task's PPO with the recurrent policy
   (``ActorCriticRecurrent``, an LSTM of the config's 512 units before each
   MLP) and RND intrinsic rewards (``RND_CFG``);

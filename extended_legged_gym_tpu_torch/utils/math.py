@@ -28,6 +28,10 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector v by quaternion q (body -> world when q is a body pose)."""
     xyz, w = q[..., :3], q[..., 3:4]
@@ -102,6 +106,14 @@ def yaw_quat(q: torch.Tensor) -> torch.Tensor:
     norm = torch.sqrt(qz * qz + qw * qw).clamp(min=1e-9)
     zeros = torch.zeros_like(qz)
     return torch.stack([zeros, zeros, qz / norm, qw / norm], dim=-1)
+
+
+def quat_yaw(q: torch.Tensor) -> torch.Tensor:
+    """Yaw angle (heading) of q: the angle of its rotated x axis in the
+    horizontal plane."""
+    x = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device).expand(q.shape[:-1] + (3,))
+    fwd = quat_rotate(q, x)
+    return torch.atan2(fwd[..., 1], fwd[..., 0])
 
 
 def ypr_to_quat(yaw: torch.Tensor, pitch: torch.Tensor, roll: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 teacher loaded from the committed PPO checkpoint, ``Distillation``'s update
 (gradient_length chunks, epochs replayed from the window-start carry, the
 global-norm clip, Adam, a cosine schedule counted in optimizer steps) and one
-DistillationRunner iteration, plus the evidence script on the CPU.
+DistillationRunner iteration (also with a teacher that reads the privileged
+observation), plus the evidence script on the CPU.
 
 Tolerances: forward passes 1e-5 absolute; the update on a given window (the
 same inputs) the parameters 1e-4 of each tensor's largest magnitude, as
@@ -212,6 +213,39 @@ def test_runner_iteration_matches_jax(teachers, rnn_type):
                     jax.tree_util.tree_leaves(runner.carry) if rnn_type else []):
         np.testing.assert_allclose(to_np(b), np.asarray(a), atol=1e-4)
     assert runner.alg.num_updates == 4 and runner.iteration == 1
+
+
+def test_runner_teacher_reads_the_privileged_observation():
+    """With ``env.num_privileged_obs`` (56: the observation padded with
+    zeros) the teacher labels the privileged observation in both packages:
+    one MLP iteration as above with a linear teacher of 56 inputs."""
+    from torch_family import to_port
+
+    w = np.random.default_rng(4).standard_normal((56, 12)).astype(np.float32) * 0.1
+    seen = []
+    jteacher = lambda obs: obs @ jnp.asarray(w)
+
+    def teacher(obs):
+        seen.append(tuple(obs.shape))
+        return obs @ torch.as_tensor(w)
+
+    jc, c = quiet(janymal_c_flat_cfg()), quiet(anymal_c_flat_cfg())
+    jc.sim.solver = "aba"
+    jc.env.num_privileged_obs = c.env.num_privileged_obs = 56
+    kw = dict(student_hidden_dims=HID, num_steps_per_env=4, num_learning_epochs=2,
+              gradient_length=3)
+    jr = JRunner(JLeggedRobot(jc), jteacher, **kw)
+    key = jax.random.PRNGKey(6)
+    a1, es1, _, jm = jr._iteration(jr.alg_state, jr.env_state, jr.carry, key)
+    noise = np.stack([np.asarray(jax.random.normal(k, (4, 12)))
+                      for k in jax.random.split(key, 4)])
+    runner = DistillationRunner(LeggedRobot(c, device="cpu"), teacher, **kw)
+    runner.env_state = to_port(jr.env_state)
+    load_flax_tree(runner.network, jax.device_get(jr.alg_state.params)["params"])
+    m = runner.train_iteration(exploration_noise=torch.as_tensor(noise))
+    assert seen == [(4, 56)] * 4
+    np.testing.assert_allclose(float(m["behavior_loss"]), float(jm["behavior_loss"]), rtol=1e-4)
+    assert_close_trees(flax_tree(runner.network), jax.device_get(a1.params)["params"], 2e-3)
 
 
 def test_student_policy_and_learn_on_cpu(teachers):

@@ -2,7 +2,9 @@
 routes (one substep, torques passed in) against their plain version, on the
 card; two launches on the same inputs agree bit for bit.  B1 is also held
 with the ElSpider Air hexapod's tables, and the fixed-base regime with the
-Franka arm's.
+Franka arm's; B1 with A1's and Go2's, B2 with A1's, Go2's, ANYmal-B's,
+Cassie's and the hexapod's on their rough tasks' grids, and the fixed-base
+regime with the hanging hexapod's, its legs in contact.
 
 Needs a CUDA card and nvcc; skips without a card.  Imports no JAX, so it runs
 on a machine without it:
@@ -145,10 +147,10 @@ def test_elspider_kernel_matches_plain_on_card():
     bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU build")
-    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, elspider_step,
-                                                                    near_standing)
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, near_standing,
+                                                                    task_step)
 
-    step = elspider_step(torch.device("cuda"))
+    step = task_step("elspider_air_flat", torch.device("cuda"))
     st, ep, act = near_standing(step.model, 300, 0, torch.device("cuda"),
                                 height=STAND_HEIGHT["elspider_air"])
     before = pk.DecimatedEnvStep.launches
@@ -188,6 +190,44 @@ def test_fixed_base_kernel_matches_plain_on_card():
     torch.testing.assert_close(tk, tp, atol=1e-2, rtol=0)
     assert rk.foot_pos.shape == (300, 0, 3)
     assert torch.equal(sk.base_pos, st.base_pos) and torch.equal(sk.base_quat, st.base_quat)
+    again = step.launch(st, act, ep)
+    torch.cuda.synchronize()
+    for k in TOLS:
+        assert torch.equal(getattr(sk, k), getattr(again[0], k)), k
+
+
+@pytest.mark.parametrize("task", ["a1_flat", "go2_flat", "a1", "go2_rough", "anymal_b", "cassie",
+                                  "elspider_air_rough", "foot_track_elspider_air_hang"])
+def test_family_kernel_matches_plain_on_card(task):
+    """The LeggedRobot family's tables at 300 envs: B1 and B2 from
+    near-standing states (B2 above the task's spawn origins), the fixed-base
+    regime with the hexapod's base held at 0.175 m (legs in contact); one
+    launch, counted on its route alone, against the plain version in float64
+    (the light legs' float32 rounding), then two launches bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (at_rest, task_env,
+                                                                    task_states)
+
+    dev = torch.device("cuda")
+    env = task_env(task, dev, 300)
+    step = env.decimated_step
+    if step.model.fix_base:
+        st, ep, act = at_rest(step.model, 300, 0, dev,
+                              torch.tensor([0.0, 0.0, 0.175], device=dev).expand(300, 3))
+    else:
+        st, ep, act = task_states(env, 300, 0, dev)
+    route = "fixed_launches" if step.model.fix_base else (
+        "rough_launches" if step.rough else "launches")
+    counters = ("launches", "rough_launches", "fixed_launches")
+    before = {k: getattr(pk.DecimatedEnvStep, k) for k in counters}
+    sk, tk, rk = step(st, act, ep)
+    after = {k: getattr(pk.DecimatedEnvStep, k) for k in counters}
+    assert after == {k: before[k] + (k == route) for k in counters}
+    sp, tp, rp = step.plain(st, act, ep, dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert float(rp.geom_forces[..., 2].sum()) > 0.0
+    _assert_close(sk, rk, sp, rp)
     again = step.launch(st, act, ep)
     torch.cuda.synchronize()
     for k in TOLS:

@@ -18,9 +18,13 @@ children at the base, 46 spheres in two 32-lane passes, 6 feet); the
 fixed-base regime (the int table's TI_FIX) with the Franka arm's (8 bodies in
 a chain, 7 joints, one sphere on the base, no feet) on flat ground and a
 slope, and with ANYmal-C's tables under a fixed base on the slope (legs in
-contact).  One case, marked slow as tests/test_physics_kernel.py is, holds
-the fixed-base regime to the JAX package's Pallas body run in interpret
-mode."""
+contact).  The plain LeggedRobot family's new tables: B2 with the hexapod's
+and Go2's on their own rough tasks' grids from the spawn origins, B1 with
+A1's, and the fixed-base regime with the hanging hexapod's (the
+``foot_track_elspider_air_hang`` task's tables) with its base held low
+enough that all six legs bear load.  One case, marked slow as
+tests/test_physics_kernel.py is, holds the fixed-base regime to the JAX
+package's Pallas body run in interpret mode."""
 import ctypes
 import shutil
 import subprocess
@@ -34,8 +38,9 @@ from extended_legged_gym_tpu_torch.physics import EnvPhysParams, initial_state, 
 from extended_legged_gym_tpu_torch.physics.engine import default_sim_params
 from extended_legged_gym_tpu_torch.envs.legged_robot_config import TerrainCfg
 from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, at_rest,
-                                                                elspider_step, franka_step,
-                                                                near_standing, rough_env)
+                                                                franka_step, near_standing,
+                                                                rough_env, task_env,
+                                                                task_states, task_step)
 from extended_legged_gym_tpu_torch.terrain import Terrain, flat_terrain, from_numpy, sample_height
 
 MODEL = "extended_legged_gym_tpu/robots/data/anymal_c.json"
@@ -152,9 +157,12 @@ def test_kernel_body_matches_plain(host_lib, control_type):
     np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
 
 
-def _assert_body_matches_plain(host_lib, step, st, act, ep):
+def _assert_body_matches_plain(host_lib, step, st, act, ep, plain_dtype=None):
+    """The host body against the plain step run in ``plain_dtype`` (default
+    float32; its outputs come back as float32); returns the plain step's
+    report."""
     new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
-    ref, tau_r, rep = step.plain(st, act, ep)
+    ref, tau_r, rep = step.plain(st, act, ep, dtype=plain_dtype)
     for name, atol in TOLS.items():
         np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
                                    atol=atol, err_msg=name)
@@ -170,7 +178,7 @@ def test_elspider_kernel_body_matches_plain(host_lib, control_type):
     """B1's per-env body with the hexapod's tables (the elspider_air_flat
     env's fused step; its 18 joints, 19-body tree with six legs on the base
     and 46 geoms) against the plain version from near-standing states."""
-    step = elspider_step("cpu")
+    step = task_step("elspider_air_flat", "cpu")
     if control_type == "T":
         step = pk.make_decimated_env_step(step.model, step.sp, step.terrain, 4,
                                           step._host["p"], step._host["d"], step._host["ddp"],
@@ -185,7 +193,7 @@ def test_elspider_kernel_body_matches_plain(host_lib, control_type):
 
 def test_elspider_kernel_body_is_lane_order_free(host_lib):
     """As test_kernel_body_is_lane_order_free, with the hexapod's tables."""
-    step = elspider_step("cpu")
+    step = task_step("elspider_air_flat", "cpu")
     st, ep, act = near_standing(step.model, 16, 3, "cpu", height=STAND_HEIGHT["elspider_air"])
     fwd = _run_host(host_lib, step, st, act, ep)
     rev = _run_host(host_lib, step, st, act, ep, lanes_reversed=True)
@@ -203,7 +211,70 @@ def test_elspider_workspace_size_matches_source(host_lib):
         assert 4 * pk.workspace_words(nb, nj, ng, nf, bool(rough)) == \
             host_lib.physics_workspace_bytes(nb, nj, ng, nf, rough)
     assert pk.block_shared_bytes(nb, nj, ng, nf) == 69628
-    assert elspider_step("cpu").ws_bytes == 4 * pk.workspace_words(nb, nj, ng, nf)
+    assert task_step("elspider_air_flat", "cpu").ws_bytes == 4 * pk.workspace_words(nb, nj, ng, nf)
+
+
+@pytest.mark.parametrize("task", ["elspider_air_rough", "go2_rough", "a1_flat"])
+def test_family_kernel_body_matches_plain(host_lib, task):
+    """B2's per-env body with the hexapod's and Go2's tables on their rough
+    tasks' grids (spawn origins, levels 0..max_init_terrain_level), and
+    B1's with A1's, against the plain version from near-standing states:
+    the robots stand on the ground."""
+    B = 64
+    env = task_env(task, "cpu", B)
+    step = env.decimated_step
+    assert step.rough == (task != "a1_flat") and not step.model.fix_base
+    st, ep, act = task_states(env, B, 0, "cpu")
+    rep = _assert_body_matches_plain(host_lib, step, st, act, ep)
+    assert float(rep.geom_forces[..., 2].sum()) > 20.0 * B
+
+
+def _hang_loaded(B, seed):
+    """The hanging hexapod's fixed-base step with its base held at 0.175 m,
+    where the feet at the default pose press 9 mm into the ground."""
+    env = task_env("foot_track_elspider_air_hang", "cpu", 1)
+    step = env.decimated_step
+    origins = torch.tensor([0.0, 0.0, 0.175]).expand(B, 3)
+    return step, at_rest(step.model, B, seed, "cpu", origins)
+
+
+def test_hanging_hexapod_fixed_base_body_matches_plain(host_lib):
+    """The fixed-base regime with the hexapod's tables, its legs in contact:
+    joints as the plain fixed-base step run in float64 (as chip_smoke.py
+    holds the hexapod's launches: on stiff, loaded contacts the float32
+    plain's own rounding is the larger error), the
+    base unchanged bit for bit, the lanes in either order."""
+    step, (st, ep, act) = _hang_loaded(64, 0)
+    assert step.model.fix_base and int(step.ti_host[pk.TI_FIX]) == 1 and not step.rough
+    rep = _assert_body_matches_plain(host_lib, step, st, act, ep, torch.float64)
+    feet = rep.geom_forces[:, step.model.foot_geom, 2]
+    assert float((feet > 1.0).float().mean()) > 0.5             # the legs bear load
+    new = _run_host(host_lib, step, st, act, ep)[0]
+    for name in ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel"):
+        assert torch.equal(getattr(new, name), getattr(st, name)), name
+    fwd = _run_host(host_lib, step, st, act, ep, lanes_reversed=True)[0]
+    for name in TOLS:
+        assert torch.equal(getattr(fwd, name), getattr(new, name)), name
+
+
+def test_family_workspaces_match_source(host_lib):
+    """The shared memory of a block of 4 envs for the new tables: the
+    wrapper's formula is the source's layout."""
+    want = {(13, 12, 24, 4): (46524, 48060), (13, 12, 56, 4): (66492, 70076),
+            (13, 12, 34, 4): (None, 54972), (13, 12, 9, 2): (None, 39612),
+            (19, 18, 46, 6): (69628, 72572)}
+    for sizes, (flat, rough) in want.items():
+        for r in (0, 1):
+            assert 4 * pk.workspace_words(*sizes, bool(r)) == \
+                host_lib.physics_workspace_bytes(*sizes, r)
+        if flat is not None:
+            assert pk.block_shared_bytes(*sizes) == flat, sizes
+        assert pk.block_shared_bytes(*sizes, rough=True) == rough, sizes
+    for task, sizes in (("a1", (13, 12, 24, 4)), ("go2_rough", (13, 12, 56, 4)),
+                        ("anymal_b", (13, 12, 34, 4)), ("cassie", (13, 12, 9, 2)),
+                        ("elspider_air_rough", (19, 18, 46, 6))):
+        m = task_env(task, "cpu").model
+        assert (m.nb, m.nj, m.ng, m.num_feet) == sizes, task
 
 
 def _slope():

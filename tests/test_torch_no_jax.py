@@ -13,7 +13,10 @@ student-teacher pair as its teacher; the actuator network, RND and the
 recurrent policy modules import, the committed SEA and ElSpider checkpoints
 load into their tasks' runners, and the SEA env steps; the small SPD solves,
 the dynamics, the Franka and the CyberDog2 modules import and the
-fixed-base Franka env and the CyberDog2 walk env step."""
+fixed-base Franka env and the CyberDog2 walk env step; the A1, Go2, ANYmal-B,
+Cassie, ANYmal-C variant modules, the random walker and the Raibert planners
+import, and every task of the LeggedRobot family and its variants steps (the
+rough ones on a 2 x 2 grid)."""
 import os
 import subprocess
 import sys
@@ -64,7 +67,9 @@ SCRIPT = textwrap.dedent(f"""
               "models.actuator_net", "models.rnd", "robots.elspider_air", "scripts.bench_train",
               "scripts.bench_kernel", "ops.linalg", "physics.dynamics", "robots.franka",
               "robots.task_variants", "robots.cyberdog2", "robots.cyberdog2_standdance",
-              "robots.cyberdog2_walk", "scripts.record_franka"):
+              "robots.cyberdog2_walk", "scripts.record_franka", "robots.a1", "robots.go2",
+              "robots.anymal_b", "robots.cassie", "robots.anymal_c_variants",
+              "utils.random_walker", "utils.raibert_planner"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -86,6 +91,19 @@ SCRIPT = textwrap.dedent(f"""
     env, _ = task_registry.make_env("cyber2_walk", get_args(argv=["--num_envs", "2"]), device="cpu")
     s = env.step(env.reset_all(seed=0), torch.zeros(2, 12))
     assert s.obs.shape == (2, 141) and bool(torch.isfinite(s.obs).all())
+    for task in ("a1", "a1_flat", "go2_rough", "go2_flat", "anymal_b", "cassie",
+                 "elspider_air_rough", "anymal_c_rough_teacher", "load_adapt_anymal_c",
+                 "pose_anymal_c", "stand_anymal_c", "anymal_c_student", "pose_go2_flat",
+                 "load_adapt_go2_flat", "stand_go2_flat", "pose_elspider_air_flat",
+                 "foot_track_elspider_air_flat", "foot_track_elspider_air_hang"):
+        cfg, _ = task_registry.get_cfgs(task)
+        cfg.env.num_envs = 2
+        cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+        cfg.terrain.terrain_length = cfg.terrain.terrain_width = 4.0
+        env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
+        s = env.step(env.reset_all(seed=0), torch.zeros(2, env.num_actions))
+        assert bool(torch.isfinite(s.obs).all()) and bool(torch.isfinite(s.rew).all()), task
+    assert len(task_registry.task_classes) == 31
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     from extended_legged_gym_tpu_torch.models.networks import read_checkpoint

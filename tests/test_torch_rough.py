@@ -144,8 +144,6 @@ def test_fall_resets_on_spawn_origins(envs):
 @pytest.mark.parametrize("change, match", [
     (lambda c: setattr(c.terrain, "mesh_type", "confined"), "terrain.mesh_type"),
     (lambda c: setattr(c.commands, "curriculum", True), "commands.curriculum"),
-    (lambda c: setattr(c.rewards.scales, "termination", -1.0), "rewards.scales.termination"),
-    (lambda c: setattr(c.env, "num_privileged_obs", 48), "env.num_privileged_obs"),
     (lambda c: setattr(c.commands, "heading_command", True), "heading_command"),
     (lambda c: setattr(c.terrain, "trimesh_contacts", True), "triangle-mesh contacts"),
 ])
@@ -155,6 +153,21 @@ def test_env_refuses_what_is_not_ported(change, match):
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):
         LeggedRobot(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    lambda c: setattr(c.rewards.scales, "termination", -1.0),
+    lambda c: setattr(c.env, "num_privileged_obs", 48),
+], ids=["rewards.scales.termination", "env.num_privileged_obs"])
+def test_env_takes_termination_and_privileged_obs(change):
+    """The termination term and privileged observations are ported: the
+    env builds with either."""
+    cfg = small_rough(anymal_c_rough_cfg())
+    change(cfg)
+    env = LeggedRobot(cfg, device="cpu")
+    s = env.reset_all(seed=0)
+    assert (env.termination_scale != 0.0) == ("termination" in s.episode_sums)
+    assert (s.privileged_obs is None) == (env.num_privileged_obs is None)
 
 
 def v_control(cfg):

@@ -1,7 +1,8 @@
 """The slice as a whole: one OnPolicyRunner iteration of the port against one
 ``_train_iteration`` of the JAX runner on the anymal_c_flat env (ABA solver),
-16 envs, T = 8 steps, [32, 16] actor and critic; then the checkpoint bridge
-in both directions, the task registry and the train and eval scripts.
+16 envs, T = 8 steps, [32, 16] actor and critic, also with a privileged
+critic (56 inputs); then the checkpoint bridge in both directions, the task
+registry and the train and eval scripts.
 
 The iteration starts from the JAX runner's env state and parameters.  The
 action noise is recomputed from the JAX key splits (``split(key, 3)``, then
@@ -107,6 +108,53 @@ def test_iteration_matches_jax(jax_runner, env):
     for (path, w), g in zip(want, got):
         np.testing.assert_allclose(g, w, atol=2e-3 * np.abs(w).max(), err_msg=str(path))
     assert runner.iteration == int(ts1.iteration) == 1
+
+
+PRIV = 56          # the 48-dim observation zero-padded: a critic wider than the actor
+
+
+def test_iteration_with_a_privileged_critic_matches_jax(tmp_path):
+    """The same iteration with ``env.num_privileged_obs`` set: the critic is
+    sized by and reads the privileged observation (the noise-free
+    observation padded with zeros, zero after the reset), in both packages;
+    the checkpoint round-trips the wider critic."""
+    from torch_family import to_port
+
+    jc = quiet(janymal_c_flat_cfg())
+    jc.sim.solver = "aba"
+    jc.env.num_privileged_obs = PRIV
+    jrunner = JRunner(JLeggedRobot(jc), small(janymal_c_ppo_cfg()))
+    cfg = quiet(anymal_c_flat_cfg())
+    cfg.env.num_privileged_obs = PRIV
+    penv = LeggedRobot(cfg, device="cpu")
+    ts0 = jrunner.state
+    ts1, jm = jrunner._train_iter(ts0)
+    runner = OnPolicyRunner(penv, small(anymal_c_ppo_cfg()))
+    assert runner.network.critic[0].in_features == PRIV
+    runner.env_state = to_port(ts0.env_state)
+    assert float(runner.env_state.privileged_obs.abs().max()) == 0.0
+    runner.network.load_state_dict(params_from_jax(jax.device_get(ts0.ppo.params)))
+    noise, perms = jax_draws(ts0, runner.ppo_cfg.num_learning_epochs)
+    m = runner.train_iteration(action_noise=noise, perms=perms)
+    np.testing.assert_allclose(runner.env_state.privileged_obs.numpy(),
+                               np.asarray(ts1.env_state.privileged_obs), atol=1e-2)
+    assert float(runner.env_state.privileged_obs[:, 48:].abs().max()) == 0.0
+    for k in ("loss", "value_loss", "surrogate_loss", "entropy", "kl"):
+        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-3, err_msg=k)
+    want = jax.tree_util.tree_leaves_with_path(jax.device_get(ts1.ppo.params))
+    got = jax.tree_util.tree_leaves(params_to_jax(runner.network))
+    for (path, w), g in zip(want, got):
+        np.testing.assert_allclose(g, w, atol=2e-3 * np.abs(w).max(), err_msg=str(path))
+    path = tmp_path / "priv.pkl"
+    runner.save(str(path))
+    fresh = OnPolicyRunner(penv, small(anymal_c_ppo_cfg()))
+    fresh.load(str(path))
+    es = runner.env_state
+    with torch.no_grad():
+        assert torch.equal(runner.network.evaluate(es.privileged_obs),
+                           fresh.network.evaluate(es.privileged_obs))
+        assert torch.equal(runner.get_inference_policy()(es.obs),
+                           fresh.get_inference_policy()(es.obs))
 
 
 def test_stage_advances_as_in_jax(jax_runner, env):
