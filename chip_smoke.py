@@ -118,7 +118,7 @@ Phases (each prints its seconds; the run fails rather than overrun):
    with A1's, Go2's, ANYmal-B's, Cassie's and the hexapod's, each on its
    own task's grid from the spawn origins, against the float64 plain
    version at 4096 from near-standing states (each block's shared memory
-   printed), the 25-step drift at 32 reported (drift_report), two launches
+   printed), the 10-step drift at 32 reported (drift_report), two launches
    bit for bit at 4096; the fixed-base regime with the hanging hexapod's
    tables (foot_track_elspider_air_hang) from the hang config's initial
    states with random actions (the feet in contact counted, the base
@@ -142,11 +142,43 @@ Phases (each prints its seconds; the run fails rather than overrun):
    and flat foot-tracking tasks) through the registry at 4096 envs,
    FAMILY_STEPS control steps each: finite rewards, the route exactly
    FAMILY_STEPS launches, the others 0;
-23. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+23. confined perception: the arena of elair_barrier_nav (its published 3 x
+   3 grid of 6 m subterrains with a 3 m border, the wall-corrected mesh of
+   ground and ceiling), raycast_trimesh of CONFINED_RAY_ENVS sensors x 16 x
+   8 spherical rays posed over it and query_sdf_trimesh of the nav
+   rollout's collision spheres (4 mains x 128 samples), each timed with
+   its peak memory and held on CONFINED_CHECK rays / points to the same
+   function run in float64 on the CPU (RAY_ATOL, SDF_ATOL; where a ground
+   face and a ceiling face coincide, a barrier of zero gap, either normal
+   and either sign is right and rounding picks one: such ties are counted,
+   as are SDF answers from another face within 1e-4 m of the minimum, see
+   check_sdf; every SDF gradient a unit vector; any other difference
+   fails);
+24. the engine route: one mpc_step of elair_timberpile_nav at its
+   published width (4 mains x 128 samples, H = 16, mesh contacts): no
+   kernel launch, EngineEnvStep's substeps exactly the control steps x 4,
+   every rollout reward and the main envs' states, observations, rewards
+   and plan finite; its time, and the device's idle share over one rollout
+   control step;
+25. the kernel routes of the new MPC tasks: one mpc_step each of
+   anymal_c_percept (B1, 128 spherical rays in its observation) and
+   anymal_c_nav_barrier (B2 on the nav config's default rough grid): the
+   route's launches exactly one per control step, the others 0;
+26. planning: one mpc_step of anymal_c_plan_grad_sampling: no launch and
+   no engine substep (kinematic rollouts);
+27. the new (regime, tables, batch) pairs at the MPC tasks' rollout batch
+   of NAV_B envs against the plain version: B1 on ANYmal-C's and on the
+   hexapod's tables (float64 plain), B2 on anymal_c_nav_barrier's grid;
+28. the new training paths: NEW_ITERS PPO iterations at the fleet of
+   anymal_c_flat_obstacles (B1; the stones fall, and a stone planted in a
+   base exchanges force with it) and elspider_air_rough_raycast (B2, 128
+   spherical rays cast twice per observation), phase 8's checks, then one
+   iteration profiled for the device's idle share;
+29. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-24. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+30. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-25. the kernel line (JSON) and the result line.  B1's entry counts its
+31. the kernel line (JSON) and the result line.  B1's entry counts its
    launches on the MPC path, the flat training path, the distillation path,
    the RL-extension paths and the ANYmal-C variants' stepping; B1's entry
    on the hexapod's tables its launches on the ElSpider path and the
@@ -157,8 +189,11 @@ Phases (each prints its seconds; the run fails rather than overrun):
    rollout paths, with its times at 1024; B1's entry on CyberDog2's tables
    on the CyberDog2 training path; each family entry (B1 on A1's and Go2's
    tables, B2 on the five new tables, the fixed-base regime on the
-   hexapod's) its launches in phases 21-22; the others carry their times at
-   the training fleet's 4096.  An entry launched no time fails the run.
+   hexapod's) its launches in phases 21-22; B1's entry also counts
+   anymal_c_percept's and anymal_c_flat_obstacles' launches (phases 25,
+   28), B2's anymal_c_nav_barrier's, the hexapod's B2 entry
+   elspider_air_rough_raycast's; the others carry their times at the
+   training fleet's 4096.  An entry launched no time fails the run.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -234,8 +269,8 @@ FRANKA_E, FRANKA_S, FRANKA_H = 8, 128, 16
 CYBER_B, CYBER_ITERS = 4096, 2
 # the LeggedRobot family: each new (regime, tables) pair against plain at
 # the fleet from near-standing states (B2 above its task's spawn origins on
-# its own grid), its 25-step drift at FAMILY_DRIFT_B; the hanging hexapod's
-# fixed base from the hang config's initial states and held at
+# its own grid), its FAMILY_DRIFT_STEPS-step drift at FAMILY_DRIFT_B; the
+# hanging hexapod's fixed base from the hang config's initial states and held at
 # HANG_LOADED_Z, where its legs bear load; FAMILY_ITERS training
 # iterations at the fleet of each FAMILY_TRAIN task and FAMILY_STEPS
 # control steps of each FAMILY_STEP task
@@ -245,6 +280,7 @@ FAMILY_KERNELS = (("B1", "a1_flat"), ("B1", "go2_flat"), ("B2", "a1"), ("B2", "g
 # heights do; at HANG_TIGHT_Z, 14 mm, float32 rounding alone moves the plain step by
 # up to ONE_STEP_ATOL in a few envs, and track_float32 holds the kernel there)
 FAMILY_DRIFT_B, HANG_LOADED_Z, HANG_TIGHT_Z = 32, 0.175, 0.17
+FAMILY_DRIFT_STEPS = 25
 FAMILY_TRAIN = ("a1", "go2_rough", "anymal_b", "cassie", "elspider_air_rough",
                 "anymal_c_rough_teacher", "anymal_c_student", "pose_go2_flat",
                 "foot_track_elspider_air_hang")
@@ -259,7 +295,27 @@ FAMILY_ITERS, FAMILY_STEPS = 2, 5
 # on the bottom row (max_init_terrain_level 0), which a short walk keeps,
 # and a promotion needs half of an 8 m subterrain
 CURRICULUM_WAIVED = {"a1": "no episode ended",
-                     "elspider_air_rough": "every env started on the bottom row"}
+                     "elspider_air_rough": "every env started on the bottom row",
+                     "elspider_air_rough_raycast": "every env started on the bottom row"}
+# the confined, navigation, planning and perception slice: the ray cast's
+# fleet and rays (4096 envs x 16 x 8 spherical rays), how many rays and SDF
+# points are held to the float64 CPU version, their tolerances (m; the
+# tolerances of tests/test_torch_trimesh.py, 1e-5, widened by the float32
+# rounding of 10 m distances and of float32 tables read in float64; the SDF's
+# gradient and nearest point, see check_sdf), the SDF gradient's length; the
+# new (regime, tables) pairs at the MPC tasks' rollout batch (4 mains x 128
+# samples) against plain; the two new training tasks at the fleet with their
+# route; training iterations
+CONFINED_RAY_ENVS, CONFINED_CHECK = 4096, 4096
+RAY_ATOL, SDF_ATOL, SDF_DIR_ATOL, UNIT_ATOL = 1e-4, 1e-4, 1e-3, 1e-5
+NEW_KERNELS = (("B1", "anymal_c_percept"), ("B1", "elspider_air_nav"),
+               ("B2", "anymal_c_nav_barrier"))
+NAV_B = 512
+# the engine route against the CPU: the first ENGINE_CPU_B of NAV_B standing
+# envs on elair_barrier_nav's arena
+ENGINE_CPU_B = 64
+NEW_TRAIN = (("anymal_c_flat_obstacles", "B1"), ("elspider_air_rough_raycast", "B2"))
+NEW_ITERS = 2
 ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
 SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
@@ -435,8 +491,8 @@ def bit_identical(name, step, B, states):
         fail(f"{name}: two launches on the same inputs differ in {bad}")
 
 
-def drift_report(name, step, B, states):
-    """drift_check's 25 control steps, with the plain version run both in
+def drift_report(name, step, B, states, steps=25):
+    """drift_check's ``steps`` control steps, with the plain version run both in
     float32 and in float64: prints the kernel's drift from each and the
     float32 plain's own drift from float64, and fails only on non-finite
     states.  For a model whose trajectories from these states are chaotic
@@ -447,20 +503,21 @@ def drift_report(name, step, B, states):
     st, ep, act = states
     act = 0.2 * act
     sk, s32, s64 = st, st, st
-    for _ in range(25):
+    for _ in range(steps):
         sk = step.launch(sk, act, ep)[0]
         s32 = step.plain(s32, act, ep)[0]
         s64 = step.plain(s64, act, ep, dtype=torch.float64)[0]
     torch.cuda.synchronize()
     for label, a, b in (("kernel - float32 plain", sk, s32), ("kernel - float64 plain", sk, s64),
                         ("float32 plain - float64 plain", s32, s64)):
-        log(f"{name} drift after 25 control steps B={B}, {label}: " + " ".join(
+        log(f"{name} drift after {steps} control steps B={B}, {label}: " + " ".join(
             f"{k}={(getattr(a, k) - getattr(b, k)).abs().max().item():.3g}" for k in DRIFT_ATOL))
-    log(f"{name}: joint velocities at the {step.model.dof_vel_limits.min():g} rad/s limit after "
-        f"25 steps: {int((s64.joint_vel.abs() > 0.99 * float(step.model.dof_vel_limits.min())).sum())}"
+    vmax = float(step.model.dof_vel_limits.min())
+    log(f"{name}: joint velocities at the {vmax:g} rad/s limit after "
+        f"{steps} steps: {int((s64.joint_vel.abs() > 0.99 * vmax).sum())}"
         f" (float64 plain)")
     if not all(torch.isfinite(getattr(sk, k)).all() for k in DRIFT_ATOL):
-        fail(f"{name}: non-finite state after 25 control steps")
+        fail(f"{name}: non-finite state after {steps} control steps")
 
 
 def v_control(cfg):
@@ -1046,10 +1103,9 @@ def family_kernels(dev, stats):
     version (float64: the light legs; an env where float32 and float64 part
     is held to float32, as compare_one_step does) at the fleet from
     near-standing states (B2 on its own task's grid above the spawn
-    origins), each block's shared
-    memory, the 25-step drift at FAMILY_DRIFT_B reported, two launches bit
-    for bit at the fleet; then the fixed-base regime with the hanging
-    hexapod's tables from the hang config's initial states (random actions;
+    origins), each block's shared memory, the FAMILY_DRIFT_STEPS-step drift
+    at FAMILY_DRIFT_B reported, two launches bit for bit at the fleet; then
+    the fixed-base regime with the hanging hexapod's tables from the hang config's initial states (random actions;
     the feet in contact counted, the base unchanged bit for bit after 1 and
     25 steps), with its base held at HANG_LOADED_Z (legs loaded), and held
     at HANG_TIGHT_Z (track_float32).  ms,
@@ -1077,7 +1133,8 @@ def family_kernels(dev, stats):
         errs[(route, robot)] = compare_one_step(name, step, FLEET,
                                                 task_states(env, FLEET, FLEET, dev),
                                                 stats[(route, robot)], torch.float64)
-        drift_report(name, step, FAMILY_DRIFT_B, task_states(env, FAMILY_DRIFT_B, 7, dev))
+        drift_report(name, step, FAMILY_DRIFT_B, task_states(env, FAMILY_DRIFT_B, 7, dev),
+                     FAMILY_DRIFT_STEPS)
         bit_identical(name, step, FLEET, task_states(env, FLEET, 3, dev))
     phase_done("family kernels vs plain", t0)
 
@@ -1295,6 +1352,450 @@ def extensions_path(dev):
                     fail("the recurrent inference policy does not carry, reset or round-trip")
     phase_done("RL extensions", t0)
     return total
+
+
+def geom_positions(model, phys):
+    """World positions [B, ng, 3] of the collision spheres of ``phys``."""
+    from extended_legged_gym_tpu_torch.physics.dynamics import forward_kinematics
+    from extended_legged_gym_tpu_torch.physics.engine import geom_positions as world
+
+    return world(model, forward_kinematics(model, phys.base_pos, phys.base_quat, phys.joint_pos,
+                                           phys.base_lin_vel, phys.base_ang_vel, phys.joint_vel))
+
+
+def rows_on_cpu(n_check, *xs):
+    """Every ``len // n_check``-th row of the [..., 3] tensors ``xs``
+    (flattened) in float64 on the CPU, and the row selection."""
+    import torch
+
+    n = xs[0].reshape(-1, 3).shape[0]
+    sel = torch.arange(0, n, max(1, n // n_check), device=xs[0].device)[:n_check]
+    return sel, [x.reshape(-1, 3)[sel].double().cpu() for x in xs]
+
+
+def flipped_only(a, b, atol):
+    """Rows where ``a`` and ``b`` [N, 3] differ, and whether each such row is
+    exactly ``b`` negated: the tie between a ground face and the ceiling
+    face coincident with it, facing the other way (a barrier of zero gap),
+    where either answer is right and float rounding picks one."""
+    diff = (a - b).abs().amax(-1) > atol
+    return diff, (a + b).abs().amax(-1) <= atol
+
+
+def check_rays(mesh, origins, dirs, outs, n_check, max_distance):
+    """The card's ray cast ``outs`` = (distance, hit, points, normal) against
+    the float64 CPU ray cast on ``n_check`` of its rays: hits exactly,
+    distances and points within RAY_ATOL, normals within RAY_ATOL except
+    where coincident faces tie (``flipped_only``).  Returns the largest
+    difference."""
+    from extended_legged_gym_tpu_torch.perception.trimesh import raycast_trimesh
+
+    sel, (o, d) = rows_on_cpu(n_check, origins, dirs)
+    rd, rh, rp, rn = raycast_trimesh(mesh, o, d, max_distance)
+    dist, hit, pts, nrm = (x.reshape((-1,) + x.shape[2:])[sel].cpu() for x in outs)
+    bad_hits = int((hit != rh).sum())
+    err = max((dist.double() - rd).abs().max().item(), (pts.double() - rp).abs().max().item())
+    diff, neg = flipped_only(nrm.double(), rn, RAY_ATOL)
+    log(f"raycast_trimesh: {len(sel)} rays held to the float64 CPU version: {bad_hits} hit flags "
+        f"differ; distances and points within {err:.3g} (atol {RAY_ATOL}); {int(diff.sum())} "
+        f"normals differ, {int((diff & neg).sum())} of them coincident faces' tie")
+    if bad_hits or not err <= RAY_ATOL or bool((diff & ~neg).any()):
+        fail("raycast_trimesh differs from its float64 CPU version")
+    return err
+
+
+def check_sdf(mesh, points, outs, n_check):
+    """The card's mesh SDF ``outs`` = (sdf, gradient, nearest) against the
+    float64 CPU version on ``n_check`` points.  Everywhere the distance's
+    magnitude agrees within SDF_ATOL and the gradient is a unit vector
+    within UNIT_ATOL (a longer one makes the contact damper indefinite).
+    The sign, gradient and nearest point are the CPU's (within SDF_ATOL and
+    SDF_DIR_ATOL) or another right answer:
+    * where a ground face and a ceiling face coincide (a barrier of zero
+      gap), the sign and the gradient exactly negated;
+    * where float32 rounding chose another of the faces within 1e-4 m of the
+      minimum: a nearest point on the mesh (|sdf| <= SDF_ATOL there on the
+      CPU) at most 1e-4 + SDF_ATOL m farther than the minimum, and the
+      gradient along the card's sign times u = point - nearest within
+      SDF_DIR_ATOL + 1e-5 m / |u| (u carries the float32 rounding of the
+      arena's coordinates, ~2e-6 m in each of its two ends).
+    Any other point fails.  Returns the largest magnitude difference."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.perception.trimesh import query_sdf_trimesh
+
+    sel, (p,) = rows_on_cpu(n_check, points)
+    rs, rg, rn = query_sdf_trimesh(mesh, p)
+    sdf, grad, near = (x.reshape((-1,) + x.shape[2:])[sel].cpu().double() for x in outs)
+    err = (sdf.abs() - rs.abs()).abs().max().item()
+    unit = (grad.norm(dim=-1) - 1.0).abs().max().item()
+    flip = (sdf - rs).abs() > SDF_ATOL
+    gdiff, gneg = flipped_only(grad, rg, SDF_DIR_ATOL)
+    same = ~flip & ~gdiff & ((near - rn).abs().amax(-1) <= SDF_DIR_ATOL)
+    tie = flip & gneg
+    u = p - near
+    un = u.norm(dim=-1).clamp(min=1e-12)
+    sgn = torch.where(sdf >= 0.0, 1.0, -1.0).double()
+    along = ((grad - sgn[:, None] * u / un[:, None]).abs().amax(-1)
+             <= SDF_DIR_ATOL + 1e-5 / un)
+    other = (~flip & ~same & (query_sdf_trimesh(mesh, near)[0].abs() <= SDF_ATOL)
+             & (un <= rs.abs() + 1e-4 + SDF_ATOL) & along)
+    bad = ~(same | tie | other)
+    log(f"query_sdf_trimesh: {len(sel)} points held to the float64 CPU version: magnitudes "
+        f"within {err:.3g} (atol {SDF_ATOL}), gradients unit within {unit:.3g} (atol "
+        f"{UNIT_ATOL}); {int(same.sum())} as on the CPU, {int(tie.sum())} coincident faces' "
+        f"tie, {int(other.sum())} another face within 1e-4 m of the minimum "
+        f"({int((other & (un < 1e-3)).sum())} of them within 1 mm of it), {int(bad.sum())} "
+        f"wrong")
+    if not err <= SDF_ATOL or not unit <= UNIT_ATOL or bool(bad.any()):
+        fail("query_sdf_trimesh differs from its float64 CPU version")
+    return err
+
+
+def perception_path(dev, envs=CONFINED_RAY_ENVS, n_check=CONFINED_CHECK):
+    """Phase 26: the confined arena of ``elair_barrier_nav`` (the task's
+    published 3 x 3 grid of 6 m, 3 m border, its wall-corrected mesh); the
+    mesh ray cast of ``envs`` sensors x 16 x 8 spherical rays (max 10 m)
+    posed over the arena, and the mesh SDF of the nav rollout's collision
+    spheres (4 mains x 128 samples, the joints perturbed); each timed, its
+    peak memory printed, and held to its float64 CPU version."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.envs.legged_robot_config import RaycasterCfg
+    from extended_legged_gym_tpu_torch.perception.patterns import make_pattern
+    from extended_legged_gym_tpu_torch.perception.trimesh import (query_sdf_trimesh,
+                                                                   raycast_trimesh)
+    from extended_legged_gym_tpu_torch.scripts import bench_mpc
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import task_env
+    from extended_legged_gym_tpu_torch.utils.math import quat_from_axis_angle, quat_rotate
+
+    t0 = time.perf_counter()
+    env = task_env("elair_barrier_nav", dev, 4)
+    terrain, mesh = env.terrain, env.terrain.trimesh
+    log(f"elair_barrier_nav arena: grid {terrain.shape[0]} x {terrain.shape[1]} at "
+        f"{terrain.hscale:.3g} m, ceiling {terrain.has_ceiling}; mesh {mesh.num_triangles} "
+        f"triangles in {mesh.nx} x {mesh.ny} cells of {mesh.cell_size:.3g} m, K = "
+        f"{mesh.cell_tris.shape[1]}; built in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H, W = terrain.shape
+    lo = torch.tensor(terrain.origin, device=dev)
+    span = torch.tensor([(H - 1) * terrain.hscale, (W - 1) * terrain.hscale], device=dev)
+    xy = lo + span * torch.rand(envs, 2, device=dev, generator=gen)
+    base = torch.cat([xy, 0.4 + 0.3 * torch.rand(envs, 1, device=dev, generator=gen)], 1)
+    yaw = 2 * math.pi * torch.rand(envs, device=dev, generator=gen)
+    quat = quat_from_axis_angle(torch.tensor([0.0, 0.0, 1.0], device=dev).expand(envs, 3), yaw)
+    rc = RaycasterCfg()
+    rc.ray_pattern, rc.spherical_num_azimuth, rc.spherical_num_elevation = "spherical", 16, 8
+    pat = torch.as_tensor(make_pattern(rc), device=dev)
+    off = torch.tensor(rc.offset_pos, device=dev)
+    origins = base[:, None] + quat_rotate(quat[:, None], off.expand(pat.shape))
+    dirs = quat_rotate(quat[:, None], pat[None].expand(envs, -1, -1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dist, hit, pts, nrm = raycast_trimesh(mesh, origins, dirs, rc.max_distance)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    ms = bench_mpc.cuda_ms(lambda: raycast_trimesh(mesh, origins, dirs, rc.max_distance),
+                           reps=2)
+    log(f"raycast_trimesh {envs} x {pat.shape[0]} rays: {ms:.2f} ms per call, peak "
+        f"{peak:.0f} MiB above the inputs; {hit.float().mean().item():.3f} hit")
+    ray_err = check_rays(mesh, origins, dirs, (dist, hit, pts, nrm), n_check, rc.max_distance)
+
+    # the collision spheres of the nav rollout batch
+    state = env.reset_all(seed=0)
+    S = env.cfg.trajectory_opt.num_samples + 1
+    rep = lambda x: x.repeat_interleave(S, dim=0)
+    phys = state.phys.replace(**{k: rep(getattr(state.phys, k)) for k in
+                                 ("base_pos", "base_quat", "joint_pos", "base_lin_vel",
+                                  "base_ang_vel", "joint_vel")})
+    phys = phys.replace(
+        joint_pos=phys.joint_pos + 0.3 * torch.randn(phys.joint_pos.shape, device=dev,
+                                                     generator=gen),
+        base_pos=phys.base_pos + torch.cat([0.3 * torch.randn(phys.base_pos.shape[0], 2, device=dev,
+                                                              generator=gen),
+                                            -0.25 * torch.rand(phys.base_pos.shape[0], 1,
+                                                               device=dev, generator=gen)], 1))
+    gp = geom_positions(env.model, phys)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sdf, grad, near = query_sdf_trimesh(mesh, gp)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    ms_sdf = bench_mpc.cuda_ms(lambda: query_sdf_trimesh(mesh, gp), reps=5)
+    log(f"query_sdf_trimesh at the nav rollout's {gp.shape[0]} x {gp.shape[1]} spheres: "
+        f"{ms_sdf:.2f} ms per call, peak {peak:.0f} MiB above the inputs; "
+        f"{int((sdf < mesh.sdf_radius).sum())} within the SDF radius, "
+        f"{int((sdf < 0).sum())} inside")
+    sdf_err = check_sdf(mesh, gp, (sdf, grad, near), n_check)
+    phase_done("confined perception", t0)
+    return dict(ray_ms=ms, sdf_ms=ms_sdf, ray_err=ray_err, sdf_err=sdf_err)
+
+
+class StepCounter:
+    """Counts ``env.rollout_step`` calls (each is one control step of the
+    rollout batch) and the non-finite rewards they return."""
+
+    def __init__(self, env):
+        import torch
+
+        self.n, self.nonfinite, step = 0, 0, env.rollout_step
+
+        def counted(*a, **kw):
+            self.n += 1
+            rs, rew = step(*a, **kw)
+            self.nonfinite += int((~torch.isfinite(rew)).sum())
+            return rs, rew
+        env.rollout_step = counted
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler: (result, wall ms, device-busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from extended_legged_gym_tpu_torch.scripts import bench_mpc
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, bench_mpc.device_split(prof, 1)["device_busy_ms"]
+
+
+def mpc_cycle(dev, task, route):
+    """One mpc_step of ``task`` at its published width (4 mains x 128
+    samples, H = 16), timed.  ``route`` "engine" must advance
+    ``EngineEnvStep.engine_substeps`` by exactly (control steps) x
+    decimation and launch no kernel; a kernel route exactly one launch per
+    control step (the rollout batches' and the main step's), the others
+    none; "none" (the kinematic planners) nothing.  Then one control step of
+    the rollout batch under the profiler for the device's idle share (a
+    whole cycle's trace is too long to reduce here).  Returns ``(launches of
+    route or engine substeps, cycle ms)``."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.physics.engine import EngineEnvStep
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import task_env
+    from extended_legged_gym_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    env = task_env(task, dev, 4)
+    to = env.cfg.trajectory_opt
+    actual = ("engine" if env.engine_step is not None else
+              "none" if type(env).__name__ == "RobotPlanGradSampling" else route_of(env))
+    if actual != route:
+        fail(f"{task} takes the {actual} route, not {route}")
+    counter = StepCounter(env)
+    state = env.reset_all(seed=0)
+    nodes = torch.zeros(env.num_envs, to.horizon_nodes + 1, env.num_actions, device=dev)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    EngineEnvStep.engine_substeps = 0
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        state, nodes, _ = env.mpc_step(state, nodes)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    counts = launch_counts()
+    n_roll = counter.n
+    steps = n_roll + 1
+    decim = env.cfg.control.decimation
+    engine = EngineEnvStep.engine_substeps
+    want_engine = steps * decim if route == "engine" else 0
+    want = {k: (steps if k == route else 0) for k in counts}
+    idle = ""
+    if route != "none":
+        S = to.num_samples + 1
+        rs = tree_map(lambda x: x.repeat_interleave(S, dim=0), env.main_to_rollout(state))
+        ep = tree_map(lambda x: x.repeat_interleave(S, dim=0), state.env_params)
+        act = torch.zeros(rs.phys.base_pos.shape[0], env.num_actions, device=dev)
+        with torch.no_grad():
+            _, step_ms, busy = profiled(lambda: env.rollout_step(rs, act, ep))
+        idle = (f"; one rollout control step of {rs.phys.base_pos.shape[0]} envs profiled: "
+                f"{step_ms:.1f} ms, device busy {busy:.1f} ms, idle {1 - busy / step_ms:.1%}")
+    log(f"{task} mpc_step (E={env.num_envs}, S={to.num_samples + 1}, H={to.horizon_samples}, "
+        f"{to.num_diffuse_steps} diffusion steps, polish {to.polish_iters}): {wall:.1f} ms; "
+        f"{n_roll} rollout control steps ({counter.nonfinite} non-finite rollout rewards); "
+        f"launches {counts}, engine substeps {engine} (want {want_engine}); rewards finite "
+        f"{bool(torch.isfinite(state.rew).all())}" + idle)
+    if counts != want or engine != want_engine:
+        fail(f"{task}: launches {counts} and engine substeps {engine}, want {want} and "
+             f"{want_engine}")
+    if not all(torch.isfinite(getattr(state.phys, k)).all() for k in ONE_STEP_ATOL
+               if k != "foot_pos"):
+        fail(f"non-finite main-env state on {task}'s MPC path")
+    if counter.nonfinite or not (torch.isfinite(state.obs).all() and torch.isfinite(nodes).all()
+                                 and torch.isfinite(state.rew).all()):
+        bad_obs = (~torch.isfinite(state.obs)).any(0).nonzero().flatten().tolist()
+        log(f"{task}: non-finite rewards in envs "
+            f"{(~torch.isfinite(state.rew)).nonzero().flatten().tolist()}, observation columns "
+            f"{bad_obs[:16]}, plan entries {int((~torch.isfinite(nodes)).sum())}; episode sums "
+            + " ".join(f"{k}={v.tolist()}" for k, v in state.episode_sums.items()))
+        fail(f"non-finite rollout rewards ({counter.nonfinite}), main-env rewards, "
+             f"observations or plans on {task}'s MPC path")
+    phase_done(f"{task} mpc_step", t0)
+    return (engine if route == "engine" else counts.get(route, 0)), wall
+
+
+def engine_vs_cpu(dev, B=NAV_B, n_cpu=ENGINE_CPU_B):
+    """The engine route on the card against the CPU: ``B`` envs of
+    ``elair_barrier_nav`` (the main envs' standing states, the joints and
+    base perturbed, on the arena's mesh contacts) take one control step
+    (4 engine substeps, PD torques) on the card; the first ``n_cpu`` take
+    the same step on the CPU in float64 (an env whose CPU float32 and
+    float64 steps part beyond ONE_STEP_ATOL, a contact decision that
+    rounding flips, is held to the CPU float32 step).  Fails beyond
+    ONE_STEP_ATOL.  Returns the card's ms per control step."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.physics.engine import EnvPhysParams
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import STAND_HEIGHT, task_env
+    from extended_legged_gym_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    env = task_env("elair_barrier_nav", dev, 4)
+    cpu = task_env("elair_barrier_nav", "cpu", 4)
+    state = env.reset_all(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    S = B // env.num_envs
+    phys = tree_map(lambda x: x.repeat_interleave(S, dim=0), state.phys)
+    # standing 1 cm low on the spawn floor (z = 0), some up to 0.6 m
+    # toward the first barrier (its face 0.5 m past the spawn box)
+    shift = torch.zeros(B, 3, device=dev)
+    shift[:, 0] = 0.6 * torch.rand(B, device=dev, generator=gen)
+    shift[:, 2] = STAND_HEIGHT["elspider_air"] - 0.01 - phys.base_pos[:, 2]
+    phys = phys.replace(joint_pos=phys.joint_pos + 0.2 * torch.randn(
+        phys.joint_pos.shape, device=dev, generator=gen), base_pos=phys.base_pos + shift)
+    ep = tree_map(lambda x: x.repeat_interleave(S, dim=0), state.env_params)
+    act = torch.randn(B, env.num_actions, device=dev, generator=gen)
+    last = torch.zeros(B, env.num_dof, device=dev)
+    with torch.no_grad():
+        out = env._physics_substeps(phys, act, ep, last)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        env._physics_substeps(phys, act, ep, last)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+    sl = lambda x: x[:n_cpu].cpu()
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        c = lambda x: sl(x).to(dt) if x.is_floating_point() else sl(x)
+        p = tree_map(c, phys)
+        res[dt] = cpu._physics_substeps(p, c(act), EnvPhysParams(c(ep.friction_scale),
+                                                                 c(ep.base_mass_delta)),
+                                        c(last))
+    env_err = lambda a, b: (a.double() - b.double()).abs().reshape(n_cpu, -1).amax(1)
+    parted = torch.zeros(n_cpu, dtype=torch.bool)
+    for k, tol in ONE_STEP_ATOL.items():
+        if k != "foot_pos":
+            parted |= env_err(getattr(res[torch.float32][0], k), getattr(res[torch.float64][0], k)) > tol
+    errs = {}
+    for k in ONE_STEP_ATOL:
+        if k == "foot_pos":
+            continue
+        card = getattr(out[0], k)[:n_cpu].cpu().double()
+        ref = torch.where(parted.reshape((-1,) + (1,) * (card.dim() - 1)),
+                          getattr(res[torch.float32][0], k).double(),
+                          getattr(res[torch.float64][0], k))
+        errs[k] = (card - ref).abs().max().item()
+    touching = int((out[2].geom_forces[:n_cpu].norm(dim=-1) > 1.0).sum())
+    log(f"engine route ({B} envs on elair_barrier_nav's mesh contacts): {ms:.1f} ms per control "
+        f"step on the card; the first {n_cpu} held to the CPU (float64; {int(parted.sum())} "
+        f"parted from float32 and held to it), {touching} spheres touching: "
+        + " ".join(f"{k}={v:.3g}" for k, v in errs.items()))
+    for k, v in errs.items():
+        if not v <= ONE_STEP_ATOL[k]:
+            fail(f"the engine route on the card differs from the CPU: {k} by {v:.3g}")
+    if touching == 0:
+        fail("no sphere touched the mesh in the engine-route check")
+    phase_done("engine route vs CPU", t0)
+    return ms
+
+
+def new_kernels(dev, stats):
+    """Each new (regime, tables, batch) pair of this slice's MPC tasks
+    against its plain version at NAV_B (4 mains x 128 samples; B2 on
+    ``anymal_c_nav_barrier``'s own grid above its spawn origins; float64
+    plain for the hexapod's light legs).  Returns the largest difference of
+    each pair."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, near_standing,
+                                                                    task_env)
+
+    t0 = time.perf_counter()
+    errs = {}
+    for route, task in NEW_KERNELS:
+        env = task_env(task, dev, NAV_B)
+        step = env.decimated_step
+        robot = os.path.splitext(os.path.basename(env.cfg.asset.file))[0]
+        if route_of(env) != route:
+            fail(f"{task}'s physics step is not {route}")
+        origins = env.reset_all(seed=0).env_origins if env.custom_origins else None
+        states = near_standing(step.model, NAV_B, NAV_B, dev, origins, STAND_HEIGHT[robot])
+        stats[(route, robot, NAV_B)] = {}
+        errs[(route, robot, NAV_B)] = compare_one_step(
+            f"{route} {robot} ({task})", step, NAV_B, states, stats[(route, robot, NAV_B)],
+            torch.float64 if robot == "elspider_air" else None)
+    phase_done("new kernel batches vs plain", t0)
+    return errs
+
+
+def stones_check(runner, rows):
+    """After training with stones: the active stones have left their spawn
+    heights (0.3-1.0 m above the base) for the ground; a stone planted 2 cm
+    into env 0's base sphere pushes the base and takes the reaction."""
+    import torch
+
+    env, state = runner.env, runner.env_state
+    st = state.stones
+    z = st.pos[..., 2][st.active]
+    log(f"stones: {int(st.active.sum())} active in {env.num_envs} envs, height median "
+        f"{z.median().item():.3f} m, speed max {st.vel.norm(dim=-1).max().item():.3f} m/s")
+    if not z.median().item() < 0.3 or not torch.isfinite(st.pos).all():
+        fail("the stones did not fall to the ground")
+    base = state.phys.base_pos[0]
+    up = float(env._obstacle_sphere_radius[0] + st.radius[0, 0]) - 0.02
+    st = st.replace(pos=st.pos.clone(), vel=st.vel.clone(), active=st.active.clone())
+    st.pos[0, 0] = base + torch.tensor([0.0, 0.0, up], device=base.device)
+    st.vel[0, 0] = 0.0
+    st.active[0, 0] = True
+    with torch.no_grad():
+        nxt = env.step(state.replace(stones=st),
+                       torch.zeros(env.num_envs, env.num_actions, device=base.device))
+    f_base = nxt.geom_forces[0, env._base_geom].norm().item()
+    v_stone = nxt.stones.vel[0, 0].norm().item()
+    log(f"a stone planted 2 cm into env 0's base: base force {f_base:.2f} N, the stone's "
+        f"speed after the step {v_stone:.3f} m/s")
+    if not (f_base > 1.0 and v_stone > 0.0):
+        fail("the planted stone and the base exchanged no force")
+
+
+def new_training(dev, launches):
+    """NEW_ITERS PPO iterations at the fleet of each NEW_TRAIN task through
+    the registry (training_path: its route exactly NEW_ITERS x 24, the
+    others 0), then one more iteration under the profiler for the device's
+    idle share; the stones checked on ``anymal_c_flat_obstacles``.  Adds the
+    launches to ``launches[(route, robot)]``."""
+    from extended_legged_gym_tpu_torch.scripts.bench_train import ppo_iteration
+
+    for task, route in NEW_TRAIN:
+        t0 = time.perf_counter()
+        n = training_path(dev, task, 1, NEW_ITERS, check=stones_check
+                          if task == "anymal_c_flat_obstacles" else None)
+        robot = "elspider_air" if "elspider" in task else "anymal_c"
+        launches[(route, robot)] = launches.get((route, robot), 0) + n
+        iterate, _ = ppo_iteration(task, 1, dev)
+        iterate()
+        times, wall, busy = profiled(iterate)
+        log(f"{task}: one profiled iteration {wall:.1f} ms (collection "
+            f"{times['collection_s']:.3f} s + update {times['update_s']:.3f} s), device busy "
+            f"{busy:.1f} ms, idle {1 - busy / wall:.1%}")
+        phase_done(f"{task} training path", t0)
 
 
 def main():
@@ -1529,7 +2030,24 @@ def main():
     family_training(dev, family_launches)
     family_stepping(dev, family_launches)
 
-    # ---------------- 23. flat evaluation ----------------
+    # ---------------- 23-28. confined perception, the engine route, the new MPC, planning
+    # and training paths ----------------
+    perception_path(dev)
+    engine_vs_cpu(dev)
+    mpc_cycle(dev, "elair_timberpile_nav", "engine")
+    percept_launches, _ = mpc_cycle(dev, "anymal_c_percept", "B1")
+    barrier_launches, _ = mpc_cycle(dev, "anymal_c_nav_barrier", "B2")
+    mpc_cycle(dev, "anymal_c_plan_grad_sampling", "none")
+    new_stats = {}
+    new_err = new_kernels(dev, new_stats)
+    new_launches = {}
+    new_training(dev, new_launches)
+    flat_err = max(flat_err, new_err[("B1", "anymal_c", NAV_B)])
+    elspider_err = max(elspider_err, new_err[("B1", "elspider_air", NAV_B)])
+    rough_err = max(rough_err, new_err[("B2", "anymal_c", NAV_B)])
+    family_launches[("B2", "elspider_air")] += new_launches[("B2", "elspider_air")]
+
+    # ---------------- 29. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -1542,7 +2060,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 24. timing ----------------
+    # ---------------- 30. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -1552,7 +2070,7 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 25. result ----------------
+    # ---------------- 31. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
@@ -1564,7 +2082,8 @@ def main():
     for name, launches, err, ks in (
             ("flat_decimated_physics_step",
              flat_launches + train_launches + distill_launches + ext_launches
-             + fam("B1", "anymal_c"), flat_err, flat_stats[4096]),
+             + fam("B1", "anymal_c") + percept_launches + new_launches[("B1", "anymal_c")],
+             flat_err, flat_stats[4096]),
             ("flat_decimated_physics_step_elspider_air",
              elspider_launches + fam("B1", "elspider_air"), elspider_err, elspider_stats[4096]),
             ("flat_physics_substep_sea_route", sea_launches, sea_err, sea_stats[FLEET]),
@@ -1576,7 +2095,7 @@ def main():
              family_err[("fixed", "elspider_air")], family_stats[("fixed", "elspider_air")][FLEET]),
             ("rough_decimated_physics_step",
              rough_launches + ray_launches + rough_train_launches + est_launches
-             + fam("B2", "anymal_c"), rough_err, rough_stats[4096]),
+             + fam("B2", "anymal_c") + barrier_launches, rough_err, rough_stats[4096]),
             ("flat_physics_substep_v_route", v_launches["flat_v"], v_err["flat_v"],
              v_stats["flat_v"][V_FLAT_B]),
             ("rough_physics_substep_v_route", v_launches["rough_v"], v_err["rough_v"],

@@ -3,8 +3,11 @@
 
 A rollout batch broadcasts each main env's state over its S samples,
 flattens to one batch of E·S envs and plays the candidate control sequences
-step by step; each control step is one launch of the fused physics kernel.
-The main state is never mutated, so nothing needs to be frozen or restored.
+step by step; each control step is one launch of the fused physics kernel
+(or, on the engine route, ``decimation`` calls of the plain engine).  The
+main state is never mutated, so nothing needs to be frozen or restored.
+Stones ride in the rollout state and are stepped with the robot, so the
+candidates anticipate stone contact.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..models.networks import ActorCritic, inference_policy, load_jax_checkpoint
 from ..physics.engine import EnvPhysParams, PhysState
+from ..terrain.dynamic_obstacles import StoneState
 from ..trajopt.sampling import TrajGradSampling, TrajOptConfig
 from ..utils.config import configclass
 from ..utils.math import quat_rotate_inverse
@@ -98,6 +102,7 @@ class RolloutState:
     geom_forces: torch.Tensor
     reset_buf: torch.Tensor
     t: torch.Tensor              # rollout time [s]
+    stones: Optional[StoneState] = None
 
     def replace(self, **changes) -> "RolloutState":
         return dataclasses.replace(self, **changes)
@@ -121,7 +126,7 @@ class RobotBatchRollout(LeggedRobot):
             projected_gravity=state.projected_gravity, foot_positions=state.foot_positions,
             foot_velocities=state.foot_velocities, geom_forces=state.geom_forces,
             reset_buf=torch.zeros_like(state.reset_buf),
-            t=state.episode_length.to(torch.float32) * self.dt)
+            t=state.episode_length.to(torch.float32) * self.dt, stones=state.stones)
 
     def rollout_step(self, rs: RolloutState, actions: torch.Tensor,
                      env_params: EnvPhysParams) -> Tuple[RolloutState, torch.Tensor]:
@@ -139,11 +144,15 @@ class RobotBatchRollout(LeggedRobot):
             projected_gravity=quat_rotate_inverse(phys.base_quat, grav),
             foot_positions=report.foot_pos, foot_velocities=report.foot_vel,
             geom_forces=report.geom_forces, t=rs.t + self.dt)
+        if self.obstacle_cfg is not None and rs.stones is not None:
+            phys, gf, stones = self._apply_obstacles(rs.phys, rs.foot_positions,
+                                                     rs.foot_velocities, rs.geom_forces, rs.stones)
+            rs = rs.replace(phys=phys, geom_forces=gf, stones=stones)
         if len(self.termination_geoms):
             forces = rs.geom_forces[:, self.termination_geoms]
             rs = rs.replace(reset_buf=torch.any(torch.linalg.norm(forces, dim=-1) > 1.0, dim=-1))
         rs, rew = self._compute_rollout_reward(rs)
-        return rs.replace(last_actions=rs.actions, last_dof_vel=phys.joint_vel), rew
+        return rs.replace(last_actions=rs.actions, last_dof_vel=rs.phys.joint_vel), rew
 
     def _compute_rollout_reward(self, rs: RolloutState) -> Tuple[RolloutState, torch.Tensor]:
         ctx = self._contact_context(rs)

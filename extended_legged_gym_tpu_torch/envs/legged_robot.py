@@ -1,5 +1,6 @@
-"""Legged-robot environment (port of ``envs/legged_robot.py``): flat ground
-and the rough-terrain subset.
+"""Legged-robot environment (port of ``envs/legged_robot.py``): flat ground,
+generated heightfields, confined (ground + ceiling) and OBJ terrains, and
+passive stone obstacles.
 
 The env object holds static configuration (model, terrain, index sets,
 reward table) and the env's random generator; ``reset_all`` and ``step`` map
@@ -15,6 +16,17 @@ ANYdrive LSTM, whose hidden state advances per substep and rides in the
 state (``actuator_hidden``), and each substep is one launch of the same
 torques-in route; the JAX env takes this path off its fused kernel onto the
 ABA engine, which the port's kernel follows.
+
+The engine route: on a terrain with a ceiling (``has_ceiling``: confined and
+OBJ terrains) or with contacts on its triangle mesh
+(``terrain.trimesh_contacts``) the JAX env steps its plain XLA engine, since
+its fused kernel has no ceiling branch and its tangent-plane contact scheme
+assumes mostly vertical normals.  The port chooses the same scenes by the
+same predicate at construction and steps them with
+``physics/engine.EngineEnvStep``: each substep's torques computed here (P,
+V, T or the actuator network), then one plain ABA step
+(``EngineEnvStep.engine_substeps`` counts them).  The kernel routes never
+give way to it: a kernel that fails to build or launch raises.
 
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
@@ -61,15 +73,26 @@ Semantics kept from the JAX env, reference quirks included:
   cleared by the runner;
 * privileged observations (``env.num_privileged_obs``): after each step the
   noise-free observation, cut or zero-padded to that width and clipped, in
-  ``EnvState.privileged_obs`` (zeros after ``reset_all``; ``None`` without).
+  ``EnvState.privileged_obs`` (zeros after ``reset_all``; ``None`` without);
+* confined terrains (``confined_trimesh`` / ``confined_heightfield``): the
+  curriculum grid of ``terrain/confined.py`` with its wall-corrected mesh
+  attached, spawned like a generated terrain; ``obj``: the rasterized layers
+  of ``terrain.terrain_file`` with its mesh, spawned on the plane's grid;
+  ``terrain.trimesh_contacts`` needs a terrain with a mesh (ValueError);
+* stones (``obstacle_gen.enable_obstacles``): spawned around each robot at
+  ``reset_all`` and re-spawned for the envs that reset; after each step's
+  physics the robot's base and feet spheres exchange penalty forces with
+  them (the forces are added to those geoms' ``geom_forces`` rows, and
+  their sum kicks the base velocity by ``F·dt / total mass``), then the
+  stones take ``decimation`` substeps on the heightfield.
 
 The env draws from its own ``torch.Generator``; each kind of draw in a step
 has its own method (``_draw_push_vel``, ``_draw_obs_noise``,
-``_draw_random_levels``, ``_draw_spawn_offset``), so a test can inject the
-JAX env's draws.
+``_draw_random_levels``, ``_draw_spawn_offset``, ``_draw_stones``), so a
+test can inject the JAX env's draws.
 
-Not ported yet (the constructor raises): triangle-mesh contacts, heading
-commands, command curriculum.
+Not ported yet (the constructor raises): heading commands, command
+curriculum.
 """
 from __future__ import annotations
 
@@ -85,11 +108,17 @@ from ..models.actuator_net import ActuatorNetLSTM
 from ..ops.physics_kernel import make_decimated_env_step, make_env_step, make_env_step_rough
 from ..perception.raycast import RayCaster
 from ..physics.contact import default_contact_params
-from ..physics.engine import EnvPhysParams, PhysState, StepReport, default_sim_params
+from ..physics.engine import (EngineEnvStep, EnvPhysParams, PhysState, StepReport,
+                              default_sim_params)
 from ..physics.model import geom_indices_matching
 from ..physics.serialize import load_model
+from ..terrain.confined import TerrainConfined
+from ..terrain.dynamic_obstacles import (DynamicObstacleConfig, StoneDraws, StoneState,
+                                         draw_stones, reset_stones, step_stones,
+                                         stone_robot_forces, stones_from_draws)
 from ..terrain.generator import Terrain
 from ..terrain.heightfield import flat_terrain, sample_height
+from ..terrain.mesh import TerrainObj
 from ..utils.config import class_to_dict
 from ..utils.device import resolve_device
 from ..utils.math import quat_apply_yaw, quat_rotate_inverse
@@ -138,6 +167,7 @@ class EnvState:
     base_lin_acc: Optional[torch.Tensor] = None      # [B, 3]
     base_ang_acc: Optional[torch.Tensor] = None      # [B, 3]
     last_root_vel: Optional[torch.Tensor] = None     # [B, 6]
+    stones: Optional[StoneState] = None              # [B, M] passive stones
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -169,13 +199,25 @@ class LeggedRobot:
             model = dataclasses.replace(model, _tensors={}, fix_base=True)
         self.model = model
         self.num_dof = model.nj
-        self.terrain_gen: Optional[Terrain] = None
-        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
-            self.terrain_gen = Terrain(cfg.terrain, self.num_envs, seed=cfg.seed)
-            self.terrain = self.terrain_gen.to_device(cfg.terrain.static_friction)
+        tc = cfg.terrain
+        self.terrain_gen = None
+        if tc.mesh_type in ("heightfield", "trimesh"):
+            self.terrain_gen = Terrain(tc, self.num_envs, seed=cfg.seed)
+            self.terrain = self.terrain_gen.to_device(tc.static_friction)
+        elif tc.mesh_type in ("confined_trimesh", "confined_heightfield"):
+            self.terrain_gen = TerrainConfined(tc, self.num_envs, seed=cfg.seed)
+            self.terrain = self.terrain_gen.to_device(tc.static_friction)
+        elif tc.mesh_type == "obj":
+            self.terrain = TerrainObj(tc.terrain_file, hscale=tc.horizontal_scale).to_device()
         else:
-            self.terrain = flat_terrain(friction=cfg.terrain.static_friction)
+            self.terrain = flat_terrain(friction=tc.static_friction)
         self.custom_origins = self.terrain_gen is not None
+        if tc.trimesh_contacts:
+            if self.terrain.trimesh is None:
+                raise ValueError(f"terrain.trimesh_contacts=True (triangle-mesh contacts) needs a "
+                                 f"terrain with a triangle mesh; mesh_type {tc.mesh_type!r} "
+                                 f"builds none")
+            self.terrain = self.terrain.replace(contact_trimesh=True)
 
         self.sim_params = default_sim_params(
             dt=cfg.sim.dt, gravity=tuple(cfg.sim.gravity),
@@ -204,6 +246,26 @@ class LeggedRobot:
         self.penalised_geoms = torch.as_tensor(
             geom_indices_matching(model, cfg.asset.penalize_contacts_on), dtype=torch.int64,
             device=self.device)
+
+        # stones: the robot's coupling spheres are the base geom and the feet
+        self.obstacle_cfg = None
+        if cfg.obstacle_gen.enable_obstacles:
+            og = cfg.obstacle_gen
+            self.obstacle_cfg = DynamicObstacleConfig(
+                enable=True, min_stones=og.min_obstacles, max_stones=og.max_obstacles,
+                spawn_height_range=list(og.spawn_height_range),
+                spawn_radius_range=list(og.spawn_radius_range),
+                density_range=list(og.stone_density_range),
+                friction_range=list(og.stone_friction_range),
+                restitution_range=list(og.stone_restitution_range),
+                cluster_probability=og.cluster_probability)
+            base_geoms = np.where(np.asarray(model.geom_body) == 0)[0]
+            self._base_geom = int(base_geoms[0]) if len(base_geoms) else 0
+            base_r = float(model.geom_radius[self._base_geom]) if len(base_geoms) else 0.3
+            self._obstacle_sphere_radius = torch.as_tensor(np.concatenate(
+                [[base_r], np.asarray(model.geom_radius)[np.asarray(model.foot_geom)]]
+            ).astype(np.float32), device=self.device)
+            self._total_mass = float(np.asarray(model.mass).sum())
 
         # height scan points [P, 2] in the base's yaw frame
         if cfg.terrain.measure_heights:
@@ -239,11 +301,14 @@ class LeggedRobot:
         self.actuator_net = (ActuatorNetLSTM.from_json(cfg.control.actuator_net_file, self.device)
                              if cfg.control.use_actuator_network and cfg.control.actuator_net_file
                              else None)
-        # P and T control: torques and substeps fused in one launch per control
-        # step; V control and the actuator network: one launch per substep with
-        # the torques passed in
-        self.decimated_step = self.substep = None
-        if cfg.control.control_type == "V" or self.actuator_net is not None:
+        # a ceiling or mesh contacts: the plain ABA engine, one call per
+        # substep; P and T control: torques and substeps fused in one launch
+        # per control step; V control and the actuator network: one launch
+        # per substep with the torques passed in
+        self.decimated_step = self.substep = self.engine_step = None
+        if self.terrain.has_ceiling or self.terrain.contact_trimesh:
+            self.engine_step = EngineEnvStep(model, self.sim_params, self.terrain)
+        elif cfg.control.control_type == "V" or self.actuator_net is not None:
             self.substep = (make_env_step(model, self.sim_params, self.terrain.height00,
                                           self.terrain.friction)
                             if self.terrain.is_flat
@@ -271,8 +336,8 @@ class LeggedRobot:
         tc = cfg.terrain
         unsupported = {
             f"terrain.mesh_type {tc.mesh_type!r}": tc.mesh_type not in (
-                "plane", "none", "heightfield", "trimesh"),
-            "triangle-mesh contacts (terrain.trimesh_contacts)": tc.trimesh_contacts,
+                "plane", "none", "heightfield", "trimesh", "confined_trimesh",
+                "confined_heightfield", "obj"),
             "commands.heading_command": cfg.commands.heading_command,
             "commands.curriculum": cfg.commands.curriculum,
         }
@@ -391,6 +456,11 @@ class LeggedRobot:
         """The xy spawn offset [B, 2] about a generated terrain's origin."""
         return self._uniform((self.num_envs, 2), -0.5, 0.5)
 
+    def _draw_stones(self) -> StoneDraws:
+        """The draws of a spawn of every env's stones (used where an env
+        resets)."""
+        return draw_stones(self.num_envs, self.obstacle_cfg, self.generator, self.device)
+
     def _draw_obs_noise(self, shape) -> torch.Tensor:
         """Uniform noise in [-1, 1) of ``shape``, scaled by ``noise_scale_vec``
         by the caller."""
@@ -436,7 +506,9 @@ class LeggedRobot:
             terrain_types=types, reward_stage=torch.zeros((), dtype=torch.int64, device=dev),
             actuator_hidden=(self.actuator_net.init_hidden((B, self.num_dof))
                              if self.actuator_net is not None else None),
-            privileged_obs=z(B, self.num_privileged_obs) if self.num_privileged_obs else None)
+            privileged_obs=z(B, self.num_privileged_obs) if self.num_privileged_obs else None,
+            stones=(stones_from_draws(self._draw_stones(), phys.base_pos, self.obstacle_cfg)
+                    if self.obstacle_cfg is not None else None))
         state = self._refresh_derived(state)
         return state.replace(obs=self._compute_observations(state))
 
@@ -479,7 +551,32 @@ class LeggedRobot:
             state.phys, actions, state.env_params, state.last_dof_vel, state.actuator_hidden)
         state = state.replace(phys=phys, actions=actions, torques=torques, actuator_hidden=hidden)
         state = self._refresh_derived(state, report)
+        if self.obstacle_cfg is not None:
+            phys, gf, stones = self._apply_obstacles(state.phys, state.foot_positions,
+                                                     state.foot_velocities, state.geom_forces,
+                                                     state.stones)
+            state = state.replace(phys=phys, geom_forces=gf, stones=stones)
         return self._post_physics_step(state)
+
+    def _apply_obstacles(self, phys: PhysState, foot_positions, foot_velocities, geom_forces,
+                         stones: StoneState):
+        """Robot-stone coupling for one control step (the main step and the
+        rollouts): penalty forces between the base and feet spheres and the
+        stones, added to those geoms' forces, their sum a velocity kick of
+        the base; then the stones take ``decimation`` substeps.  Returns
+        ``(phys, geom_forces, stones)``."""
+        oc = self.obstacle_cfg
+        sphere_pos = torch.cat([phys.base_pos[:, None], foot_positions], dim=1)
+        sphere_vel = torch.cat([phys.base_lin_vel[:, None], foot_velocities], dim=1)
+        f_robot, stones = stone_robot_forces(stones, sphere_pos, self._obstacle_sphere_radius,
+                                             self.dt, oc, sphere_vel=sphere_vel)
+        stones = step_stones(stones, self.terrain, self.cfg.sim.dt, oc,
+                             n_substeps=self.cfg.control.decimation)
+        gf = geom_forces.clone()
+        gf[:, self._base_geom] += f_robot[:, 0]
+        gf[:, self.feet_geoms] += f_robot[:, 1:]
+        dv = f_robot.sum(dim=1) * (self.dt / self._total_mass)
+        return phys.replace(base_lin_vel=phys.base_lin_vel + dv), gf, stones
 
     def _physics_substeps(self, phys: PhysState, actions: torch.Tensor,
                           env_params: EnvPhysParams, last_dof_vel: torch.Tensor,
@@ -488,13 +585,15 @@ class LeggedRobot:
         ``(phys, tau_last, report, actuator_hidden)``.  P and T control run it
         fused in one kernel launch on the card; V control and the actuator
         network launch one substep at a time, the network's hidden state
-        advancing per substep."""
-        if self.substep is None:
+        advancing per substep; the engine route calls the plain engine once
+        per substep."""
+        if self.decimated_step is not None:
             return (*self.decimated_step(phys, actions, env_params), actuator_hidden)
+        step = self.engine_step if self.engine_step is not None else self.substep
         for _ in range(self.cfg.control.decimation):
             tau, actuator_hidden = self._compute_torques(actions, phys, last_dof_vel,
                                                          actuator_hidden)
-            phys, report = self.substep(phys, tau, env_params)
+            phys, report = step(phys, tau, env_params)
         return phys, tau, report, actuator_hidden
 
     def _compute_torques(self, actions: torch.Tensor, phys: PhysState,
@@ -502,17 +601,26 @@ class LeggedRobot:
         """Torques clamped to the limits and the actuator network's next
         hidden state: with the network, its torque for the position error
         ``scaled + default - q`` and the velocity (the control type is
-        ignored); under V control a P term on the velocity error and a D term
-        on the joint acceleration since the control step began
-        (``last_dof_vel``).  P and T torques are computed inside the fused
-        step."""
+        ignored); under P control the PD law about ``scaled + default``;
+        under V control a P term on the velocity error and a D term on the
+        joint acceleration since the control step began (``last_dof_vel``);
+        under T control the scaled actions.  (On the kernel routes P and T
+        torques are computed inside the fused step.)"""
         scaled = actions * self.cfg.control.action_scale
+        ctrl = self.cfg.control.control_type
         if self.actuator_net is not None:
             x = torch.stack([scaled + self.default_dof_pos - phys.joint_pos, phys.joint_vel], dim=-1)
             tau, actuator_hidden = self.actuator_net(x, actuator_hidden)
-        else:
+        elif ctrl == "P":
+            tau = (self.p_gains_t * (scaled + self.default_dof_pos - phys.joint_pos)
+                   - self.d_gains_t * phys.joint_vel)
+        elif ctrl == "V":
             tau = (self.p_gains_t * (scaled - phys.joint_vel)
                    - self.d_gains_t * (phys.joint_vel - last_dof_vel) / self.cfg.sim.dt)
+        elif ctrl == "T":
+            tau = scaled
+        else:
+            raise NameError(f"Unknown controller type: {ctrl}")
         return torch.maximum(torch.minimum(tau, self.torque_limits), -self.torque_limits), actuator_hidden
 
     def _refresh_derived(self, state: EnvState, report: Optional[StepReport] = None) -> EnvState:
@@ -614,6 +722,10 @@ class LeggedRobot:
         hidden = state.actuator_hidden
         if hidden is not None:
             hidden = tuple(zero(h) for h in hidden)
+        stones = state.stones
+        if stones is not None:
+            stones = reset_stones(stones, phys.base_pos, mask, self.obstacle_cfg,
+                                  draws=self._draw_stones())
         # fold the finished episodes into the accumulators before zeroing
         em = dict(state.episode_metrics)
         em["count"] = em["count"] + fmask.sum()
@@ -623,7 +735,7 @@ class LeggedRobot:
             em["rew_" + k] = em["rew_" + k] + (v * fmask).sum() / self.max_episode_length_s
         return state.replace(
             phys=phys, commands=commands, episode_metrics=em, actuator_hidden=hidden,
-            terrain_levels=levels, env_origins=origins,
+            stones=stones, terrain_levels=levels, env_origins=origins,
             episode_return=state.episode_return * (1.0 - fmask),
             episode_length=torch.where(mask, torch.zeros_like(state.episode_length), state.episode_length),
             last_actions=zero(state.last_actions), last_dof_vel=zero(state.last_dof_vel),

@@ -3,10 +3,10 @@
 
 Field names and defaults match the JAX package.  Only the groups and fields
 that the ported slices (flat sampling MPC, rough-terrain policy evaluation
-and training, flat PPO training, ray perception, the actuator network and
-the RL extensions) read are here; the env
-raises on the settings the port does not implement yet (those fields stay so
-it can).
+and training, flat PPO training, ray perception, the actuator network, the
+RL extensions, confined and OBJ terrains and stone obstacles) read are here;
+the env raises on the settings the port does not implement yet (those fields
+stay so it can).
 """
 from __future__ import annotations
 
@@ -27,7 +27,10 @@ class EnvCfg:
 
 @configclass
 class TerrainCfg:
-    mesh_type: str = "trimesh"   # none/plane, heightfield, trimesh (contacts on the heightfield)
+    # none/plane, heightfield, trimesh (contacts on the generated heightfield),
+    # confined_trimesh / confined_heightfield (terrain/confined.py), obj
+    mesh_type: str = "trimesh"
+    terrain_file: Optional[str] = None   # the .obj of mesh_type "obj"
     horizontal_scale: float = 0.1
     vertical_scale: float = 0.005
     border_size: float = 25.0
@@ -50,7 +53,12 @@ class TerrainCfg:
     num_cols: int = 8   # terrain types
     # [smooth slope, rough slope, stairs up, stairs down, discrete]
     terrain_proportions: List[float] = [0.1, 0.1, 0.35, 0.25, 0.2]
-    trimesh_contacts: bool = False   # contacts on a true triangle mesh (not ported)
+    # confined: cumulative [tunnel, barrier, timber_piles, confined_gap(,
+    # column_obstacles, wall_with_gap)]
+    confined_terrain_proportions: List[float] = [0.25, 0.5, 0.75, 1.0]
+    # physics contacts on the terrain's triangle mesh (sphere-vs-mesh SDF);
+    # needs a terrain that carries one, and steps the plain ABA engine
+    trimesh_contacts: bool = False
 
 
 @configclass
@@ -237,9 +245,26 @@ class DepthCfg:
 
 
 @configclass
+class ObstacleGenCfg:
+    """Passive stone obstacles dropped around each robot
+    (terrain/dynamic_obstacles.py)."""
+
+    enable_obstacles: bool = False
+    min_obstacles: int = 5
+    max_obstacles: int = 15
+    spawn_height_range: List[float] = [0.3, 1.0]
+    spawn_radius_range: List[float] = [1.5, 6.0]
+    stone_density_range: List[float] = [800.0, 2000.0]
+    stone_friction_range: List[float] = [0.3, 0.9]
+    stone_restitution_range: List[float] = [0.1, 0.4]
+    cluster_probability: float = 0.3
+
+
+@configclass
 class LeggedRobotCfg:
     seed: int = 1
     env: EnvCfg = EnvCfg()
+    obstacle_gen: ObstacleGenCfg = ObstacleGenCfg()
     terrain: TerrainCfg = TerrainCfg()
     commands: CommandsCfg = CommandsCfg()
     init_state: InitStateCfg = InitStateCfg()

@@ -19,6 +19,11 @@ routes: one physics substep per call with the torques passed in, the same
 kernels launched with ``decimation = 1``, direct torques and action scale 1
 (:class:`EnvStep`, counted apart from the fused control steps).
 
+A terrain with a ceiling or with contacts on its triangle mesh is refused:
+the kernels have no ceiling branch and their contact assumes a
+heightfield; the env steps such scenes with ``physics/engine.EngineEnvStep``
+(the JAX env likewise leaves its fused step for the XLA engine there).
+
 On a heightfield the JAX package's fused step carries each geom's position
 from the previous control step and samples one tangent plane there per
 control step; the port's B2, like the ABA engine, samples the heightfield at
@@ -308,6 +313,9 @@ class DecimatedEnvStep:
                              f"not {sp.solver!r}")
         if any(t != "revolute" for t in model.joint_types):
             raise NotImplementedError("the kernel takes revolute-joint robots")
+        if terrain.has_ceiling or terrain.contact_trimesh:
+            raise ValueError("the fused kernel has no ceiling or triangle-mesh contacts; such "
+                             "scenes take physics/engine.EngineEnvStep")
         fg = foot_geoms(model)
         nb, nj, ng, nf = model.nb, model.nj, model.ng, len(fg)
         if nb > MAX_NB or nj > MAX_NJ or ng > MAX_NG or nf > MAX_NF:

@@ -1,7 +1,8 @@
 """Depth cameras (port of ``perception/depth_camera.py``).
 
 ``DepthCameraRaycast`` renders a pinhole grid of rays against the terrain
-heightfield (``perception/raycast.py``) from a camera mounted on the base;
+(``perception/raycast.py``: the heightfield, its ceiling, or the triangle
+mesh where the terrain carries one) from a camera mounted on the base;
 every camera shares one processing pipeline (``DepthCameraBase.process``):
 clip, optional distance noise, resize, normalize (and invert) and scale, and
 a ring buffer of the last ``buffer_len`` frames.
@@ -82,7 +83,7 @@ class DepthCameraFake(DepthCameraBase):
 
 
 class DepthCameraRaycast(DepthCameraBase):
-    """Heightfield raycasts from the camera pose: the base pose composed with
+    """Terrain raycasts from the camera pose: the base pose composed with
     the mount position and pitch (the mean of ``cfg.angle``), out to
     ``far_clip``."""
 

@@ -1,16 +1,16 @@
-"""Rays against the terrain heightfield (port of ``perception/raycast.py``,
-its heightfield branch).
+"""Rays against the terrain (port of ``perception/raycast.py``).
 
-A ray is marched in ``MARCH_STEPS`` evenly spaced samples from its origin to
-``max_distance``; the first sample below the ground and the one before it
-bracket the hit, and ``BISECT_STEPS`` halvings of the bracket give the
-distance (to ``max_distance / 2**13``).  The march is one batched height
+On a terrain that carries a triangle mesh (confined and OBJ terrains) a ray
+is cast against the mesh exactly (``perception/trimesh.raycast_trimesh``):
+lateral faces and thin features included.  Otherwise a ray is marched in
+``MARCH_STEPS`` evenly spaced samples from its origin to ``max_distance``;
+the first sample outside the free space and the one before it bracket the
+hit, and ``BISECT_STEPS`` halvings of the bracket give the distance (to
+``max_distance / 2**13``).  The march is one batched height
 lookup over ``[..., R, MARCH_STEPS]``, the bisection a loop of eight steps on
-``[..., R]``.  A ray that never goes below the ground reports
-``max_distance``.
-
-Not ported (raise ``NotImplementedError``): terrains with a triangle mesh
-(exact ray-triangle queries) or with a ceiling (confined terrains).
+``[..., R]``.  A ray that never leaves the free space reports
+``max_distance``.  Under a ceiling the free space is ``ground < z <
+ceiling``.
 """
 from __future__ import annotations
 
@@ -19,10 +19,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..terrain.heightfield import TerrainData, sample_height
+from ..terrain.heightfield import TerrainData, sample_ceiling, sample_height
 from ..utils.device import resolve_device
 from ..utils.math import quat_rotate, yaw_quat
 from .patterns import make_pattern
+from .trimesh import raycast_trimesh
 
 MARCH_STEPS = 48
 BISECT_STEPS = 8
@@ -34,24 +35,21 @@ class RaycastResult(NamedTuple):
     points: torch.Tensor     # [..., R, 3] hit point (the end point on a miss)
 
 
-def _check_heightfield(terrain: TerrainData):
-    if getattr(terrain, "trimesh", None) is not None:
-        raise NotImplementedError("not ported yet: raycasts against a triangle mesh "
-                                  "(perception/trimesh.py, ROADMAP queue 1 item 10)")
-    if getattr(terrain, "has_ceiling", False):
-        raise NotImplementedError("not ported yet: raycasts under a ceiling (confined "
-                                  "terrains, ROADMAP queue 1 item 10)")
-
-
 def _below(terrain: TerrainData, p: torch.Tensor) -> torch.Tensor:
-    """Points [..., 3] under the ground."""
-    return p[..., 2] - sample_height(terrain, p[..., :2]) < 0.0
+    """Points [..., 3] outside the free space: under the ground or above
+    the ceiling."""
+    gap = p[..., 2] - sample_height(terrain, p[..., :2])
+    if terrain.has_ceiling:
+        gap = torch.minimum(gap, sample_ceiling(terrain, p[..., :2]) - p[..., 2])
+    return gap < 0.0
 
 
 def raycast(terrain: TerrainData, origins: torch.Tensor, dirs: torch.Tensor,
             max_distance: float) -> RaycastResult:
     """Rays from ``origins`` along unit ``dirs`` (both [..., R, 3])."""
-    _check_heightfield(terrain)
+    if terrain.trimesh is not None:
+        dist, hit, points, _ = raycast_trimesh(terrain.trimesh, origins, dirs, max_distance)
+        return RaycastResult(distance=dist, hit=hit, points=points)
     ts = torch.linspace(0.0, 1.0, MARCH_STEPS, device=origins.device) * max_distance
     below = _below(terrain, origins[..., None, :] + dirs[..., None, :] * ts[:, None])
     any_hit = below.any(dim=-1)
@@ -74,7 +72,6 @@ class RayCaster:
     full base quaternion or by its yaw only."""
 
     def __init__(self, cfg, terrain: TerrainData, device="cuda"):
-        _check_heightfield(terrain)
         device = resolve_device(device)
         self.cfg, self.terrain = cfg, terrain
         pat = make_pattern(cfg)

@@ -13,7 +13,13 @@ The model, as in the JAX package:
   which the engine folds into the articulated inertias (implicit damping);
 * on a heightfield, ``n`` is the normal of the bilinear patch under the
   sphere and the gap is vertical; the anchor displacement is projected onto
-  the tangent plane.  A flat terrain gives ``n = z``.
+  the tangent plane.  A flat terrain gives ``n = z``;
+* under a ceiling (two-layer terrains) the gap of the sphere's top to the
+  ceiling counts where it is the deeper one, with ``n = -z``;
+* with ``terrain.contact_trimesh`` the depth and normal come from the
+  triangle mesh's signed distance (``perception/trimesh.query_sdf_trimesh``):
+  walls and ceilings push along their true normals.  Beyond the mesh's SDF
+  radius the distance reads positive, so the contact is inactive.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..terrain.heightfield import TerrainData, sample_height_and_normal
+from ..perception.trimesh import query_sdf_trimesh
+from ..terrain.heightfield import TerrainData, sample_ceiling, sample_height_and_normal
 
 
 @dataclass(frozen=True)
@@ -66,10 +73,21 @@ def sphere_terrain_contact(terrain: TerrainData, params: ContactParams,
         anchor = xy
     if mu is None:
         mu = params.mu
-    h, n = sample_height_and_normal(terrain, xy)
-
-    # ground contact: vertical gap of the sphere's lowest point
-    depth = (h + radius) - pos[..., 2]
+    if terrain.contact_trimesh:
+        sdf, n, _ = query_sdf_trimesh(terrain.trimesh, pos)
+        depth = radius - sdf
+    else:
+        h, n = sample_height_and_normal(terrain, xy)
+        # ground contact: vertical gap of the sphere's lowest point
+        depth = (h + radius) - pos[..., 2]
+        if terrain.has_ceiling:
+            # ceiling contact: gap of the sphere's highest point
+            depth_c = pos[..., 2] + radius - sample_ceiling(terrain, xy)
+            use_ceiling = depth_c > depth
+            depth = torch.maximum(depth, depth_c)
+            down = torch.zeros_like(n)
+            down[..., 2] = -1.0
+            n = torch.where(use_ceiling[..., None], down, n)
     active = (depth > 0.0).to(pos.dtype)
     depth_a = torch.minimum(depth.clamp(min=0.0), 2.0 * radius + 0.05)
 

@@ -5,7 +5,9 @@
 ``physics/aba.py`` (the plain version of the fused CUDA kernel in
 ``ops/physics_kernel.py``), or ``"crba"``, the dense joint-space solve
 assembled from body Jacobians (``physics/dynamics.py``), which is the oracle
-the ABA step is held to."""
+the ABA step is held to.  :class:`EngineEnvStep` is the env's engine route:
+the ABA step per substep for the scenes the fused kernel does not model (a
+ceiling, contacts on a triangle mesh)."""
 from __future__ import annotations
 
 import dataclasses
@@ -112,6 +114,14 @@ def physics_step(model: RobotModel, terrain, sp: SimParams, state: PhysState,
     return _physics_step_crba(model, terrain, sp, state, joint_torque, env_params)
 
 
+def geom_positions(model: RobotModel, kin) -> torch.Tensor:
+    """World positions [B, ng, 3] of the collision spheres, from the
+    forward kinematics ``kin`` (:func:`physics.dynamics.forward_kinematics`)."""
+    T = model.torch(kin.body_pos.device, kin.body_pos.dtype)
+    gb = T["geom_body"]
+    return kin.body_pos[:, gb] + (kin.body_rot[:, gb] @ T["geom_offset"][..., None])[..., 0]
+
+
 def _physics_step_crba(model, terrain, sp, state, joint_torque, env_params):
     """The dense step: M, C and the contact Jacobians, the implicit contact
     damper dt Σ JᵀDJ added to M, one Cholesky solve."""
@@ -121,8 +131,7 @@ def _physics_step_crba(model, terrain, sp, state, joint_torque, env_params):
     kin = forward_kinematics(model, state.base_pos, state.base_quat, state.joint_pos,
                              state.base_lin_vel, state.base_ang_vel, state.joint_vel)
     gb = T["geom_body"]
-    g_rot = kin.body_rot[:, gb]
-    g_pos = kin.body_pos[:, gb] + (g_rot @ T["geom_offset"][..., None])[..., 0]
+    g_pos = geom_positions(model, kin)
     g_vel = kin.v_origin[:, gb] + cross(kin.omega[:, gb], g_pos - kin.body_pos[:, gb])
     mu = sp.contact.mu * terrain.friction * env_params.friction_scale[:, None]
     contact = sphere_terrain_contact(terrain, sp.contact, g_pos, g_vel, T["geom_radius"],
@@ -166,3 +175,24 @@ def _physics_step_crba(model, terrain, sp, state, joint_torque, env_params):
     foot_vel = kin.v_origin[:, fb] + cross(kin.omega[:, fb], foot_pos - kin.body_pos[:, fb])
     return new_state, StepReport(geom_forces=geom_forces, foot_pos=foot_pos, foot_vel=foot_vel,
                                  qdd=udot)
+
+
+class EngineEnvStep:
+    """One physics substep of B envs with the torques passed in, on the plain
+    ABA engine (:func:`physics_step`), for the scenes the fused kernel does
+    not model: a terrain with a ceiling (the kernel has no ceiling branch)
+    or with contacts on its triangle mesh (the kernel's tangent-plane scheme
+    assumes mostly vertical normals).  The env chooses it from the scene's
+    configuration, as the JAX env leaves its fused step for the XLA engine;
+    it is never a fallback for a kernel that failed.  Called as ``(phys, tau,
+    env_params) -> (new_phys, report)``; ``EngineEnvStep.engine_substeps``
+    counts the substeps of all instances."""
+
+    engine_substeps = 0
+
+    def __init__(self, model: RobotModel, sp: SimParams, terrain):
+        self.model, self.sp, self.terrain = model, sp, terrain
+
+    def __call__(self, phys: PhysState, tau: torch.Tensor, env_params: EnvPhysParams):
+        type(self).engine_substeps += 1
+        return physics_step(self.model, self.terrain, self.sp, phys, tau, env_params)

@@ -99,3 +99,11 @@ def geom_indices_matching(model: RobotModel, patterns) -> np.ndarray:
         patterns = [patterns]
     return np.array([i for i, n in enumerate(model.geom_links)
                      if any(p in n for p in patterns)], dtype=np.int32)
+
+
+def body_indices_matching(model: RobotModel, patterns) -> np.ndarray:
+    """Body indices whose name contains any pattern (the SDF query bodies)."""
+    if isinstance(patterns, str):
+        patterns = [patterns]
+    return np.array([i for i, n in enumerate(model.body_names)
+                     if any(p in n for p in patterns)], dtype=np.int64)

@@ -2,6 +2,9 @@
 from __future__ import annotations
 
 from ..envs.legged_robot import LeggedRobot
+from ..envs.navigation import RobotBatchRolloutNav
+from ..envs.percept import RobotBatchRolloutPercept
+from ..envs.plan_grad import RobotPlanGradSampling
 from ..utils.task_registry import task_registry
 from . import (a1, anymal_b, anymal_c, anymal_c_traj, anymal_c_variants, cassie, cyberdog2,
                cyberdog2_standdance, cyberdog2_walk, elspider_air, franka, go2, task_variants)
@@ -14,6 +17,9 @@ task_registry.register("anymal_c_flat", LeggedRobot, anymal_c.anymal_c_flat_cfg,
                        lambda: anymal_c.anymal_c_ppo_cfg("flat_anymal_c"))
 task_registry.register("anymal_c_flat_sea", LeggedRobot, anymal_c.anymal_c_flat_sea_cfg,
                        lambda: anymal_c.anymal_c_ppo_cfg("flat_sea_anymal_c"))
+task_registry.register("anymal_c_flat_obstacles", LeggedRobot,
+                       anymal_c.anymal_c_flat_obstacles_cfg,
+                       lambda: anymal_c.anymal_c_ppo_cfg("flat_obstacles_anymal_c"))
 task_registry.register("anymal_c_traj_grad_sampling", anymal_c_traj.AnymalCTrajGradSampling,
                        anymal_c_traj.anymal_c_traj_sampling_cfg, None)
 task_registry.register("anymal_b", LeggedRobot, anymal_b.anymal_b_rough_cfg,
@@ -76,3 +82,21 @@ for _name, _cls in (("cyber2_walk", cyberdog2_walk.CyberWalkEnv),
 # Franka batch rollout
 task_registry.register("franka_batch_rollout", franka.Franka,
                        task_variants.franka_batch_rollout_cfg, franka.franka_ppo_cfg)
+
+# planning, perception and navigation (confined arenas on the engine route)
+task_registry.register("anymal_c_plan_grad_sampling", RobotPlanGradSampling,
+                       task_variants.anymal_c_plan_cfg, None)
+task_registry.register("elspider_air_plan_grad_sampling", RobotPlanGradSampling,
+                       task_variants.elspider_air_plan_grad_sampling_cfg, None)
+task_registry.register("anymal_c_percept", RobotBatchRolloutPercept,
+                       task_variants.anymal_c_percept_cfg, None)
+task_registry.register("elspider_air_rough_raycast", RobotBatchRolloutPercept,
+                       task_variants.elspider_air_rough_raycast_cfg,
+                       elspider_air.elspider_air_ppo_cfg)
+for _name, _cfg in (("anymal_c_nav", task_variants.anymal_c_nav_cfg),
+                    ("anymal_c_nav_barrier", task_variants.anymal_c_nav_barrier_cfg),
+                    ("anymal_c_timberpile_nav", task_variants.anymal_c_nav_timberpile_cfg),
+                    ("elspider_air_nav", task_variants.elspider_air_nav_cfg),
+                    ("elair_barrier_nav", task_variants.elair_nav_barrier_cfg),
+                    ("elair_timberpile_nav", task_variants.elair_nav_timberpile_cfg)):
+    task_registry.register(_name, RobotBatchRolloutNav, _cfg, None)

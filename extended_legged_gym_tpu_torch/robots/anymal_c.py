@@ -98,6 +98,17 @@ def anymal_c_flat_sea_cfg() -> LeggedRobotCfg:
     return cfg
 
 
+def anymal_c_flat_obstacles_cfg() -> LeggedRobotCfg:
+    """The flat task with 4-8 passive stones per robot, dropped 1-4 m
+    around it."""
+    cfg = anymal_c_flat_cfg()
+    cfg.obstacle_gen.enable_obstacles = True
+    cfg.obstacle_gen.min_obstacles = 4
+    cfg.obstacle_gen.max_obstacles = 8
+    cfg.obstacle_gen.spawn_radius_range = [1.0, 4.0]
+    return cfg
+
+
 def anymal_c_rough_raycast_cfg() -> LeggedRobotCfg:
     """The perceptive rough task: the 235-dim rough observation plus 32
     forward cone rays (60 degrees, 10 m, mounted 0.5 m ahead of the base) as

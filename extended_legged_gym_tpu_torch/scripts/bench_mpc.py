@@ -72,23 +72,23 @@ def solve_latency(device="cuda", n_solves=15, warmup=3, seed=0):
 
 
 def device_split(prof, reps):
-    """Per-rep device-busy ms (sum of kernel times on the one stream), the
-    fused physics kernels' ms and their launch count, from a torch.profiler
-    trace of ``reps`` repetitions."""
+    """Per-rep device-busy ms (sum of the device events' times on the one
+    stream: kernels, copies, sets), the fused physics kernels' ms and their
+    launch count, from a torch.profiler trace of ``reps`` repetitions.
+    Read from the raw trace: ``prof.key_averages()`` gives the same sums but
+    takes 8-17 s to build for one training iteration's or engine control
+    step's trace on the H100 host."""
     from torch.autograd import DeviceType
 
-    busy_us = kernel_us = launches = 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:          # count device kernels only
+    busy_ns = kernel_ns = launches = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:        # count device events only
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        busy_us += us
-        if "decimated_step_kernel" in ev.key:
-            kernel_us += us
-            launches += ev.count
-    return dict(device_busy_ms=busy_us / 1e3 / reps, physics_kernel_ms=kernel_us / 1e3 / reps,
+        busy_ns += ev.duration_ns()
+        if "decimated_step_kernel" in ev.name():
+            kernel_ns += ev.duration_ns()
+            launches += 1
+    return dict(device_busy_ms=busy_ns / 1e6 / reps, physics_kernel_ms=kernel_ns / 1e6 / reps,
                 physics_launches=launches / reps)
 
 

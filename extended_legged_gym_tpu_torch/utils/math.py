@@ -69,6 +69,14 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=1e-9)
 
 
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
+    """Turn ``q`` by the world-frame angular velocity ``omega_world`` for
+    ``dt`` (exponential map), normalized."""
+    angle = torch.linalg.norm(omega_world, dim=-1, keepdim=True)
+    axis = omega_world / angle.clamp(min=1e-9)
+    return quat_normalize(quat_mul(quat_from_axis_angle(axis, (angle * dt)[..., 0]), q))
+
+
 def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (xyzw), branch-free: of the four
     candidate solutions (trace-, x-, y-, z-major) the one with the largest

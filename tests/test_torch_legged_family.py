@@ -2,7 +2,7 @@
 and the ANYmal-C, Go2 and ElSpider pose, load, stand, student and
 foot-tracking variants against the JAX package, on the CPU: each of the
 eighteen tasks' configs and ``go2_dialmpc_flat_cfg`` field by field, the new
-models, the registry's 31 tasks; each task's observation, privileged
+models, the registry's 42 tasks (31 up to this family); each task's observation, privileged
 observation and every active reward term on the same drawn states (4 envs);
 each base term the port adds (termination and no_fly among them) and each
 variant term, one case per term.
@@ -94,7 +94,7 @@ def test_model_loads_as_in_jax(robot, sizes):
 
 
 def test_registry_holds_the_ported_tasks():
-    assert len(task_registry.task_classes) == 31
+    assert len(task_registry.task_classes) == 42
     assert set(TASKS) <= set(task_registry.task_classes) <= set(jtask_registry.task_classes)
     for task in TASKS:
         env_cfg, train_cfg = task_registry.get_cfgs(task)

@@ -16,7 +16,10 @@ the dynamics, the Franka and the CyberDog2 modules import and the
 fixed-base Franka env and the CyberDog2 walk env step; the A1, Go2, ANYmal-B,
 Cassie, ANYmal-C variant modules, the random walker and the Raibert planners
 import, and every task of the LeggedRobot family and its variants steps (the
-rough ones on a 2 x 2 grid)."""
+rough ones on a 2 x 2 grid); the triangle-mesh, SDF, confined, OBJ,
+obstacle and stone modules and the percept, navigation and planning envs
+import, and each of the 11 tasks they add steps (the confined arenas on the
+engine route, 2 x 2 grids of 4 m), the registry holding 42 tasks."""
 import os
 import subprocess
 import sys
@@ -69,7 +72,9 @@ SCRIPT = textwrap.dedent(f"""
               "robots.task_variants", "robots.cyberdog2", "robots.cyberdog2_standdance",
               "robots.cyberdog2_walk", "scripts.record_franka", "robots.a1", "robots.go2",
               "robots.anymal_b", "robots.cassie", "robots.anymal_c_variants",
-              "utils.random_walker", "utils.raibert_planner"):
+              "utils.random_walker", "utils.raibert_planner", "perception.trimesh",
+              "perception.sdf", "terrain.confined", "terrain.mesh", "terrain.obstacles",
+              "terrain.dynamic_obstacles", "envs.percept", "envs.navigation", "envs.plan_grad"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -103,7 +108,20 @@ SCRIPT = textwrap.dedent(f"""
         env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
         s = env.step(env.reset_all(seed=0), torch.zeros(2, env.num_actions))
         assert bool(torch.isfinite(s.obs).all()) and bool(torch.isfinite(s.rew).all()), task
-    assert len(task_registry.task_classes) == 31
+    for task in ("anymal_c_flat_obstacles", "anymal_c_nav_barrier", "anymal_c_plan_grad_sampling",
+                 "anymal_c_percept", "anymal_c_nav", "anymal_c_timberpile_nav",
+                 "elspider_air_plan_grad_sampling", "elspider_air_rough_raycast",
+                 "elspider_air_nav", "elair_barrier_nav", "elair_timberpile_nav"):
+        cfg, _ = task_registry.get_cfgs(task)
+        cfg.env.num_envs = 2
+        cfg.terrain.num_rows = cfg.terrain.num_cols = 2
+        cfg.terrain.terrain_length = cfg.terrain.terrain_width = 4.0
+        env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
+        s = env.step(env.reset_all(seed=0), torch.zeros(2, env.num_actions))
+        assert bool(torch.isfinite(s.obs).all()) and bool(torch.isfinite(s.rew).all()), task
+        assert (env.engine_step is not None) == (task in {
+            "anymal_c_timberpile_nav", "elair_barrier_nav", "elair_timberpile_nav"}), task
+    assert len(task_registry.task_classes) == 42
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     from extended_legged_gym_tpu_torch.models.networks import read_checkpoint
@@ -132,7 +150,7 @@ def test_port_imports_and_loads_checkpoint_without_jax():
     assert "actor (128, 48)" in proc.stdout and "rough actions (1, 12)" in proc.stdout
     assert "ray actions (1, 12)" in proc.stdout and "estimated rays (2, 32)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 65
+    assert n >= 74
 
 
 def test_chip_smoke_refuses_without_cuda():

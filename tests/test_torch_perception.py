@@ -8,7 +8,8 @@ to 1e-4 m, hits exactly.  The depth camera renders from the same poses at
 the estimator's 48 x 24 -> 32 x 16 and at the default 60 x 30 -> 56 x 28
 (both resizes shrink, so the antialiased triangle kernel is exercised), to
 1e-4; with distance noise, the JAX draw is injected.  Terrains with a
-ceiling or a triangle mesh are refused."""
+ceiling or a triangle mesh are cast too (they were refused before the
+confined slice)."""
 import dataclasses
 
 import jax
@@ -196,7 +197,7 @@ def test_pinhole_grid_matches_jax():
                                    atol=1e-6)
 
 
-# -------------------------------------------------------------- refusals
+# ------------------------------------------------- ceilings and meshes
 @dataclasses.dataclass(frozen=True, eq=False)
 class _CeilingTerrain(TerrainData):
     has_ceiling: bool = True
@@ -209,10 +210,35 @@ class _MeshTerrain(TerrainData):
 
 @pytest.mark.parametrize("cls, match", [(_CeilingTerrain, "ceiling"), (_MeshTerrain, "triangle mesh")])
 def test_ceiling_and_trimesh_terrains_are_refused(cls, match):
-    base = from_numpy(np.zeros((8, 8), np.float32), 0.5)
-    terrain = cls(**{f.name: getattr(base, f.name) for f in dataclasses.fields(base)})
-    o = torch.zeros(1, 1, 3)
-    with pytest.raises(NotImplementedError, match=match):
-        raycast(terrain, o, o, 1.0)
-    with pytest.raises(NotImplementedError, match=match):
-        RayCaster(RaycasterCfg(), terrain, device="cpu")
+    """Terrains with a ceiling or a triangle mesh were refused before the
+    confined slice; now ``raycast`` and the sensor take them: the ray casts
+    of a two-layer grid (``match`` "ceiling") or of its wall-corrected mesh
+    ("triangle mesh") agree with the JAX package to 1e-4 m, hits exactly
+    (tests/test_torch_trimesh.py holds the mesh queries closer)."""
+    from extended_legged_gym_tpu.perception.trimesh import trimesh_from_heightfield as jmesh_of
+    from extended_legged_gym_tpu.terrain import from_numpy as jfrom_numpy
+    from extended_legged_gym_tpu_torch.perception.trimesh import trimesh_from_heightfield
+
+    rng = np.random.default_rng(0)
+    g = (0.1 * rng.standard_normal((16, 16))).astype(np.float32)
+    c = (g + 1.2).astype(np.float32)
+    c[:, :4] = 1e6
+    mesh = trimesh_from_heightfield(g, 0.25, ceiling=c, slope_threshold=1.5) \
+        if cls is _MeshTerrain else None
+    jmesh = jmesh_of(g, 0.25, ceiling=c, slope_threshold=1.5) if cls is _MeshTerrain else None
+    terrain = from_numpy(g, 0.25, ceiling=c, trimesh=mesh)
+    jterrain = jfrom_numpy(g, 0.25, ceiling=c, trimesh=jmesh)
+    assert terrain.has_ceiling and (terrain.trimesh is not None) == (cls is _MeshTerrain)
+    cfg, jcfg = RaycasterCfg(), JRaycasterCfg()
+    for x in (cfg, jcfg):
+        x.ray_pattern, x.spherical_num_azimuth, x.spherical_num_elevation = "spherical", 8, 4
+        x.max_distance = 3.0
+    pos = np.concatenate([rng.uniform(0.5, 3.2, (B, 2)), rng.uniform(0.3, 0.8, (B, 1))], 1)
+    quat = rng.standard_normal((B, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    pos, quat = pos.astype(np.float32), quat.astype(np.float32)
+    res = RayCaster(cfg, terrain, device="cpu").cast(torch.as_tensor(pos), torch.as_tensor(quat))
+    jres = JRayCaster(jcfg, jterrain).cast(jnp.asarray(pos), jnp.asarray(quat))
+    np.testing.assert_array_equal(res.hit.numpy(), np.asarray(jres.hit))
+    np.testing.assert_allclose(res.distance.numpy(), np.asarray(jres.distance), atol=1e-4)
+    assert res.hit.any() and not res.hit.all(), match

@@ -148,10 +148,15 @@ def test_fall_resets_on_spawn_origins(envs):
     (lambda c: setattr(c.terrain, "trimesh_contacts", True), "triangle-mesh contacts"),
 ])
 def test_env_refuses_what_is_not_ported(change, match):
+    """An unknown mesh type and the command options not ported yet raise
+    NotImplementedError; triangle-mesh contacts are ported and, as in the
+    JAX package, raise ValueError on a terrain without a mesh (this
+    generated grid carries none)."""
     cfg = small_rough(anymal_c_rough_cfg())
     cfg.terrain.curriculum = True
     change(cfg)
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if match == "triangle-mesh contacts" else NotImplementedError
+    with pytest.raises(error, match=match):
         LeggedRobot(cfg, device="cpu")
 
 

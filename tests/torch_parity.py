@@ -1,6 +1,7 @@
 """Helpers shared by the port's parity tests: carrying a JAX env state into
 the port."""
 import numpy as np
+import pytest
 import torch
 
 from extended_legged_gym_tpu_torch.envs.legged_robot import EnvState
@@ -31,3 +32,14 @@ def to_torch_state(js) -> EnvState:
         episode_metrics={k: t(v) for k, v in js.episode_metrics.items()},
         measured_heights=t(js.measured_heights), terrain_levels=i64(js.terrain_levels),
         terrain_types=i64(js.terrain_types), reward_stage=i64(js.reward_stage))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch CPU ops on one thread (restored after): the
+    tier-1 run puts 6 workers on the machine's cores, and torch's default of
+    one thread per core per worker oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
