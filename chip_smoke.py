@@ -174,11 +174,37 @@ Phases (each prints its seconds; the run fails rather than overrun):
    base exchanges force with it) and elspider_air_rough_raycast (B2, 128
    spherical rays cast twice per observation), phase 8's checks, then one
    iteration profiled for the device's idle share;
-29. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+29. polish modes: one E=1 flagship solve (anymal_c_traj_sampling_cfg:
+   Nsample=127, Hsample=16, Hnode=4, Ndiffuse=2) per polish mode, "none",
+   "fd", "gradient" and "ilqr", POLISH_ITERS polish iterations each
+   (scripts/bench_polish): B1's launches and the plain engine's substeps
+   exactly what the solve's structure implies (the engine only for gradient
+   and iLQR; fd's B1 count that of the kernel route alone), no env's
+   fast-route score lowered by its polish, each solve's ms;
+30. gradients on the card: the differentiable route's node gradient at E=1
+   over GRAD_HS + 1 steps, and one control step's fx and fu (forward-mode,
+   trajopt/riccati._linearize), each held to the float64 plain engine on
+   the CPU within GRAD_TOL_FACTOR x the CPU's float32 - float64 gap (plus
+   1e-6 of the largest entry), the tolerance printed;
+31. the 17 tasks of the last slice through the registry: one mpc_step of
+   each sampling-MPC task at its registered main envs (the route's
+   launches exactly one per control step: anymal_c_dialmpc_flat and
+   elspider_air_dialmpc_flat launch 32 x 128 = 4096 envs), one
+   rollout_batch (ROLLOUT_S samples, H=16) and one step of each
+   batch-rollout task at its 16 main envs (the route exactly 18 launches;
+   the two ElSpider ones register the plain ElSpider env, as the JAX
+   package does, which has no rollout_batch: two steps, 2 launches),
+   POSE_STEPS steps of each pose-adapt task at its 1024 envs (no launch, no
+   engine substep); rewards and observations finite;
+32. the new kernel pairs against the float64 plain step, two launches bit
+   for bit: B1 on Cassie's tables at 128 (cassie_traj_grad_sampling's
+   rollout batch), B1 at B=1 (the iLQR's node scoring), B2 on the hexapod's
+   tables at 512 on elspider_air_dialmpc's grid;
+33. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-30. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+34. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-31. the kernel line (JSON) and the result line.  B1's entry counts its
+35. the kernel line (JSON) and the result line.  B1's entry counts its
    launches on the MPC path, the flat training path, the distillation path,
    the RL-extension paths and the ANYmal-C variants' stepping; B1's entry
    on the hexapod's tables its launches on the ElSpider path and the
@@ -192,8 +218,10 @@ Phases (each prints its seconds; the run fails rather than overrun):
    hexapod's) its launches in phases 21-22; B1's entry also counts
    anymal_c_percept's and anymal_c_flat_obstacles' launches (phases 25,
    28), B2's anymal_c_nav_barrier's, the hexapod's B2 entry
-   elspider_air_rough_raycast's; the others carry their times at the
-   training fleet's 4096.  An entry launched no time fails the run.
+   elspider_air_rough_raycast's; phases 29 and 31 add each launch to the
+   entry of its tables (B1 on Cassie's a new entry, its times at 128); the
+   others carry their times at the training fleet's 4096.  An entry
+   launched no time fails the run.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -316,6 +344,28 @@ NAV_B = 512
 ENGINE_CPU_B = 64
 NEW_TRAIN = (("anymal_c_flat_obstacles", "B1"), ("elspider_air_rough_raycast", "B2"))
 NEW_ITERS = 2
+# the polish modes' solves and the gradient checks: polish iterations per
+# solve, the gradient check's horizon (dense steps - 1, nodes - 1), the
+# tolerance as a multiple of the CPU's float32 - float64 gap
+POLISH_MODES, POLISH_ITERS = ("none", "fd", "gradient", "ilqr"), 1
+GRAD_HS, GRAD_HN, GRAD_TOL_FACTOR = 3, 1, 4.0
+# the last slice's tasks: the sampling-MPC tasks with their route, the
+# batch-rollout tasks with theirs (one rollout_batch of ROLLOUT_S samples,
+# H=16), the pose-adapt tasks (POSE_STEPS steps, no kernel); the new kernel
+# pairs (route, task, batch)
+NEW_MPC = (("go2_dialmpc_flat", "B1"), ("go2_traj_grad_sampling", "B1"),
+           ("cassie_traj_grad_sampling", "B1"), ("anymal_c_dialmpc_flat", "B1"),
+           ("elspider_air_traj_grad_sampling", "B1"), ("elspider_air_dialmpc", "B2"),
+           ("elspider_air_dialmpc_flat", "B1"))
+NEW_ROLLOUT = (("anymal_c_batch_rollout", "B2"), ("anymal_c_batch_rollout_flat", "B1"),
+               ("go2_batch_rollout", "B2"), ("go2_batch_rollout_flat", "B1"),
+               ("elspider_air_batch_rollout", "B2"), ("elspider_air_batch_rollout_flat", "B1"))
+ROLLOUT_S = 8
+POSE_TASKS = ("anymal_c_base_pose_adapt", "anymal_c_base_pose_ctrl", "el_mini_base_pose_adapt",
+              "el_mini_base_pose_ctrl")
+POSE_STEPS = 3
+PAIRS_14 = (("B1", "cassie_traj_grad_sampling", 128), ("B1", "anymal_c_traj_grad_sampling", 1),
+            ("B2", "elspider_air_dialmpc", 512))
 ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
 SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
@@ -1566,16 +1616,17 @@ def profiled(fn):
     return out, wall, bench_mpc.device_split(prof, 1)["device_busy_ms"]
 
 
-def mpc_cycle(dev, task, route):
-    """One mpc_step of ``task`` at its published width (4 mains x 128
-    samples, H = 16), timed.  ``route`` "engine" must advance
-    ``EngineEnvStep.engine_substeps`` by exactly (control steps) x
-    decimation and launch no kernel; a kernel route exactly one launch per
-    control step (the rollout batches' and the main step's), the others
-    none; "none" (the kinematic planners) nothing.  Then one control step of
-    the rollout batch under the profiler for the device's idle share (a
-    whole cycle's trace is too long to reduce here).  Returns ``(launches of
-    route or engine substeps, cycle ms)``."""
+def mpc_cycle(dev, task, route, num_envs=4, profile=True):
+    """One mpc_step of ``task`` at ``num_envs`` main envs (default 4: the
+    nav tasks' published width, 4 mains x 128 samples, H = 16), timed.
+    ``route`` "engine" must advance ``EngineEnvStep.engine_substeps`` by
+    exactly (control steps) x decimation and launch no kernel; a kernel
+    route exactly one launch per control step (the rollout batches' and the
+    main step's), the others none; "none" (the kinematic planners) nothing.
+    Then, where ``profile``, one control step of the rollout batch under the
+    profiler for the device's idle share (a whole cycle's trace is too long
+    to reduce here).  Returns ``(launches of route or engine substeps, cycle
+    ms)``."""
     import torch
 
     from extended_legged_gym_tpu_torch.physics.engine import EngineEnvStep
@@ -1583,7 +1634,7 @@ def mpc_cycle(dev, task, route):
     from extended_legged_gym_tpu_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
-    env = task_env(task, dev, 4)
+    env = task_env(task, dev, num_envs)
     to = env.cfg.trajectory_opt
     actual = ("engine" if env.engine_step is not None else
               "none" if type(env).__name__ == "RobotPlanGradSampling" else route_of(env))
@@ -1608,7 +1659,7 @@ def mpc_cycle(dev, task, route):
     want_engine = steps * decim if route == "engine" else 0
     want = {k: (steps if k == route else 0) for k in counts}
     idle = ""
-    if route != "none":
+    if route != "none" and profile:
         S = to.num_samples + 1
         rs = tree_map(lambda x: x.repeat_interleave(S, dim=0), env.main_to_rollout(state))
         ep = tree_map(lambda x: x.repeat_interleave(S, dim=0), state.env_params)
@@ -1796,6 +1847,233 @@ def new_training(dev, launches):
             f"{times['collection_s']:.3f} s + update {times['update_s']:.3f} s), device busy "
             f"{busy:.1f} ms, idle {1 - busy / wall:.1%}")
         phase_done(f"{task} training path", t0)
+
+
+def robot_of(cfg):
+    """The robot of a task config: its model file's name (anymal_c,
+    elspider_air, ...)."""
+    return os.path.splitext(os.path.basename(cfg.asset.file))[0]
+
+
+def polish_modes(dev):
+    """One E=1 flagship solve per POLISH_MODES mode at POLISH_ITERS polish
+    iterations (scripts/bench_polish): the counts of B1 launches and engine
+    substeps exactly expected_counts', B2 0; each env's fast-route score of
+    the polished nodes not below that of the same solve's diffused nodes
+    (the solve rerun with the polish off, the same noise); the solve's ms.
+    Returns the B1 launches of the counted solves."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.scripts.bench_polish import (counted_solve,
+                                                                    expected_counts, node_scores,
+                                                                    polish_env)
+
+    t0 = time.perf_counter()
+    launches = 0
+    for mode in POLISH_MODES:
+        env = polish_env(mode, POLISH_ITERS, dev)
+        to = env.cfg.trajectory_opt
+        state = env.reset_all(seed=0)
+        nodes = env.traj_sampler.init_node_trajectories()
+        with torch.no_grad():
+            iters, to.polish_iters = to.polish_iters, 0
+            diffused, _, _ = counted_solve(env, state, nodes, seed=1)
+            to.polish_iters = iters
+            t1 = time.perf_counter()
+            out, info, counts = counted_solve(env, state, nodes, seed=1)
+            ms = (time.perf_counter() - t1) * 1e3
+            before, after = node_scores(env, state, diffused), node_scores(env, state, out)
+        want = dict(zip(("B1", "engine_substeps"), expected_counts(env)), B2=0)
+        gains = {k: [round(float(x), 6) for x in v.reshape(-1)] for k, v in info.items()
+                 if k in ("polish_gain", "ilqr_accept")}
+        log(f"polish {mode} x{to.polish_iters} (E=1, Nsample={to.num_samples + 1}, "
+            f"Hsample={to.horizon_samples}, Hnode={to.horizon_nodes}, "
+            f"Ndiffuse={to.num_diffuse_steps}): {ms:.1f} ms; counts {counts} (want {want}); "
+            f"score diffused {before.tolist()} -> polished {after.tolist()}; {gains}")
+        launches += counts["B1"]
+        if counts != want:
+            fail(f"polish {mode}: counts {counts}, want {want}")
+        if not bool((after >= before - 1e-5 * before.abs() - 1e-6).all()):
+            fail(f"polish {mode} lowered a score: {before.tolist()} -> {after.tolist()}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"polish {mode}: non-finite nodes")
+    phase_done("polish modes", t0)
+    return launches
+
+
+def gradients_on_card(dev):
+    """The differentiable route on the card against the float64 plain engine
+    on the CPU, at E=1 from the flagship env's reset state (GRAD_HS + 1
+    dense steps, GRAD_HN + 1 seeded nodes): the gradient of the summed
+    reward with respect to the nodes, and fx, fu of the first control step
+    (the iLQR's forward-mode linearization).  Each is held to the float64
+    result within GRAD_TOL_FACTOR x the CPU float32 result's distance from
+    it, plus 1e-6 of its largest entry; the tolerance is printed."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.robots.anymal_c_traj import (
+        AnymalCTrajGradSampling, anymal_c_traj_sampling_cfg)
+    from extended_legged_gym_tpu_torch.trajopt import riccati
+    from extended_legged_gym_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+
+    def make(device):
+        cfg = anymal_c_traj_sampling_cfg(1)
+        cfg.trajectory_opt.horizon_samples, cfg.trajectory_opt.horizon_nodes = GRAD_HS, GRAD_HN
+        return AnymalCTrajGradSampling(cfg, device=device)
+
+    env, cpu = make(dev), make("cpu")
+    state = env.reset_all(seed=0)
+    s32 = tree_map(lambda x: x.cpu(), state)
+    s64 = tree_map(lambda x: x.double() if x.is_floating_point() else x, s32)
+    gen = torch.Generator().manual_seed(0)
+    nodes = 0.3 * torch.randn(1, GRAD_HN + 1, env.num_actions, generator=gen)
+
+    def dense(e, n):
+        return torch.einsum("dn,...na->...da", e.traj_sampler.spline.A.to(n.dtype), n)
+
+    def grad(e, s, n):
+        n = n.clone().requires_grad_(True)
+        J = e.rollout_batch(s, dense(e, n)[:, None], differentiable=True)[:, 0].sum()
+        return torch.autograd.grad(J, n)[0]
+
+    def jac(e, s, n):
+        step_fn, x0, ctx = e.ilqr_problem(s)
+        us = dense(e, n.to(x0.dtype))[:, :1]
+        with torch.no_grad():
+            xs = x0[:, None].expand(-1, 2, -1)          # the step from x0 (its end unread)
+            fx, fu = riccati._linearize(step_fn, xs, us, "proximal", 0.1, 1.0, ctx)[:2]
+        return fx, fu
+
+    res = {}
+    for name, fn, what in (("node gradient", lambda e, s, n: (grad(e, s, n),),
+                            f"{GRAD_HS + 1} control steps"),
+                           ("fx, fu", jac, "the first control step")):
+        card = [x.cpu().double() for x in fn(env, state, nodes.to(dev))]
+        torch.cuda.synchronize()
+        f32 = [x.double() for x in fn(cpu, s32, nodes)]
+        f64 = fn(cpu, s64, nodes.double())
+        for i, (c, a, b) in enumerate(zip(card, f32, f64)):
+            label = name if len(card) == 1 else name.split(", ")[i]
+            gap = (a - b).abs().max().item()
+            tol = GRAD_TOL_FACTOR * gap + 1e-6 * b.abs().max().item()
+            err = (c - b).abs().max().item()
+            res[label] = err
+            log(f"{label} on the card (E=1, {what}, shape {tuple(c.shape)}): "
+                f"card - float64 CPU {err:.3g}, float32 CPU - float64 CPU {gap:.3g}, tolerance "
+                f"{tol:.3g} ({GRAD_TOL_FACTOR:g} x the gap + 1e-6 x max |entry| "
+                f"{b.abs().max().item():.3g})")
+            if not (torch.isfinite(c).all() and err <= tol):
+                fail(f"{label} on the card differs from the float64 CPU by {err:.3g} > {tol:.3g}")
+    phase_done("gradients on the card", t0)
+    return res
+
+
+def new_tasks_14(dev, launches):
+    """The 17 tasks of the last slice through the registry (phase 31).
+    Adds each kernel launch to ``launches[(route, robot)]``."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.physics.engine import EngineEnvStep
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import task_env
+    from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
+
+    for task, route in NEW_MPC:
+        mains = task_registry.get_cfgs(task)[0].env.num_envs
+        n, _ = mpc_cycle(dev, task, route, num_envs=mains, profile=False)
+        key = (route, robot_of(task_registry.get_cfgs(task)[0]))
+        launches[key] = launches.get(key, 0) + n
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for task, route in NEW_ROLLOUT:
+        env = task_env(task, dev, task_registry.get_cfgs(task)[0].env.num_envs)
+        if route_of(env) != route:
+            fail(f"{task} takes the {route_of(env)} route, not {route}")
+        # the ElSpider tasks register the plain ElSpider env, as the JAX
+        # package does: no rollout_batch, so two steps instead
+        E, H1, rollout = env.num_envs, 17, hasattr(env, "rollout_batch")
+        with torch.no_grad():
+            state = env.reset_all(seed=0)
+            us = 0.3 * torch.randn(E, ROLLOUT_S, H1, env.num_actions, device=dev, generator=gen)
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t1 = time.perf_counter()
+            rew = env.rollout_batch(state, us) if rollout else state.rew
+            for _ in range(1 if rollout else 2):
+                state = env.step(state, torch.randn(E, env.num_actions, device=dev, generator=gen))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        counts = launch_counts()
+        want = {k: ((H1 + 1 if rollout else 2) if k == route else 0) for k in counts}
+        log(f"{task}: " + (f"rollout_batch {E} x {ROLLOUT_S} x H={H1 - 1} and one step"
+                           if rollout else f"no rollout_batch ({type(env).__name__}); 2 steps at "
+                           f"{E} envs") + f", {ms:.1f} ms: launches {counts}; rollout reward mean "
+            f"{rew.mean().item():.4g}, step rewards finite {bool(torch.isfinite(state.rew).all())}")
+        if counts != want:
+            fail(f"{task}: launches {counts}, want {want}")
+        if not (torch.isfinite(rew).all() and torch.isfinite(state.rew).all()
+                and torch.isfinite(state.obs).all()):
+            fail(f"non-finite rewards or observations on {task}")
+        key = (route, robot_of(env.cfg))
+        launches[key] = launches.get(key, 0) + counts[route]
+    phase_done("batch-rollout tasks", t0)
+
+    t0 = time.perf_counter()
+    for task in POSE_TASKS:
+        env = task_env(task, dev, task_registry.get_cfgs(task)[0].env.num_envs)
+        with torch.no_grad():
+            state = env.reset_all(seed=0)
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            EngineEnvStep.engine_substeps = 0
+            t1 = time.perf_counter()
+            rew = []
+            for _ in range(POSE_STEPS):
+                state = env.step(state, torch.randn(env.num_envs, 6, device=dev, generator=gen))
+                rew.append(state.rew)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3 / POSE_STEPS
+        rew = torch.stack(rew)
+        counts = launch_counts()
+        log(f"{task}: {POSE_STEPS} steps at {env.num_envs} envs ({env.num_rays} rays, "
+            f"{len(env.geom_radius)} spheres, mesh contacts {env.terrain.contact_trimesh}), "
+            f"{ms:.1f} ms per step: reward mean {rew.mean().item():.4g}, resets "
+            f"{int(state.reset_buf.sum())}; launches {counts}, engine substeps "
+            f"{EngineEnvStep.engine_substeps}")
+        if any(counts.values()) or EngineEnvStep.engine_substeps:
+            fail(f"{task} launched a kernel or the engine")
+        if not (torch.isfinite(rew).all() and torch.isfinite(state.obs).all()):
+            fail(f"non-finite rewards or observations on {task}")
+    phase_done("pose-adapt tasks", t0)
+
+
+def new_pairs_14(dev, stats):
+    """Each PAIRS_14 (route, task, batch) against the float64 plain step
+    (compare_one_step) and two launches bit for bit.  Returns the largest
+    difference of each, keyed (route, robot, batch)."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, near_standing,
+                                                                    task_env)
+
+    t0 = time.perf_counter()
+    errs = {}
+    for route, task, B in PAIRS_14:
+        env = task_env(task, dev, B)
+        step, robot = env.decimated_step, robot_of(env.cfg)
+        if route_of(env) != route:
+            fail(f"{task}'s physics step is not {route}")
+        origins = env.reset_all(seed=0).env_origins if env.custom_origins else None
+        states = lambda seed: near_standing(step.model, B, seed, dev, origins, STAND_HEIGHT[robot])
+        name = f"{route} {robot} ({task})"
+        stats[(route, robot, B)] = {}
+        errs[(route, robot, B)] = compare_one_step(name, step, B, states(B), stats[(route, robot, B)],
+                                                   torch.float64)
+        bit_identical(name, step, B, states(3))
+    phase_done("new kernel pairs vs plain", t0)
+    return errs
 
 
 def main():
@@ -2047,7 +2325,21 @@ def main():
     rough_err = max(rough_err, new_err[("B2", "anymal_c", NAV_B)])
     family_launches[("B2", "elspider_air")] += new_launches[("B2", "elspider_air")]
 
-    # ---------------- 29. flat evaluation ----------------
+    # ---------------- 29-32. the polish modes, gradients on the card, the last slice's
+    # tasks and kernel pairs ----------------
+    polish_launches = polish_modes(dev)
+    gradients_on_card(dev)
+    new14_launches = {}
+    new_tasks_14(dev, new14_launches)
+    for key, n in new14_launches.items():
+        family_launches[key] = family_launches.get(key, 0) + n
+    pairs_stats = {}
+    pairs_err = new_pairs_14(dev, pairs_stats)
+    flat_err = max(flat_err, pairs_err[("B1", "anymal_c", 1)])
+    family_err[("B2", "elspider_air")] = max(family_err[("B2", "elspider_air")],
+                                             pairs_err[("B2", "elspider_air", 512)])
+
+    # ---------------- 33. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -2060,7 +2352,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 30. timing ----------------
+    # ---------------- 34. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -2070,7 +2362,7 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 31. result ----------------
+    # ---------------- 35. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
@@ -2082,8 +2374,10 @@ def main():
     for name, launches, err, ks in (
             ("flat_decimated_physics_step",
              flat_launches + train_launches + distill_launches + ext_launches
-             + fam("B1", "anymal_c") + percept_launches + new_launches[("B1", "anymal_c")],
-             flat_err, flat_stats[4096]),
+             + fam("B1", "anymal_c") + percept_launches + new_launches[("B1", "anymal_c")]
+             + polish_launches, flat_err, flat_stats[4096]),
+            ("flat_decimated_physics_step_cassie", fam("B1", "cassie"),
+             pairs_err[("B1", "cassie", 128)], pairs_stats[("B1", "cassie", 128)][128]),
             ("flat_decimated_physics_step_elspider_air",
              elspider_launches + fam("B1", "elspider_air"), elspider_err, elspider_stats[4096]),
             ("flat_physics_substep_sea_route", sea_launches, sea_err, sea_stats[FLEET]),

@@ -8,6 +8,11 @@ step by step; each control step is one launch of the fused physics kernel
 main state is never mutated, so nothing needs to be frozen or restored.
 Stones ride in the rollout state and are stepped with the robot, so the
 candidates anticipate stone contact.
+
+``differentiable=True`` plays the batch on the plain engine instead, so that
+autograd (the gradient polish) and forward-mode Jacobians (the iLQR polish,
+``trajopt/riccati.py``) flow through it; the diffusion sweep, the fd polish
+and the iLQR's node-level scoring keep the kernel.
 """
 from __future__ import annotations
 
@@ -20,10 +25,11 @@ import torch
 from ..models.networks import ActorCritic, inference_policy, load_jax_checkpoint
 from ..physics.engine import EnvPhysParams, PhysState
 from ..terrain.dynamic_obstacles import StoneState
+from ..trajopt.riccati import ilqr_solve_batched, make_flattener
 from ..trajopt.sampling import TrajGradSampling, TrajOptConfig
 from ..utils.config import configclass
 from ..utils.math import quat_rotate_inverse
-from ..utils.tree import tree_map
+from ..utils.tree import tree_flatten, tree_map
 from .legged_robot import EnvState, LeggedRobot
 from .legged_robot_config import LeggedRobotCfg
 
@@ -32,7 +38,7 @@ from .legged_robot_config import LeggedRobotCfg
 class TrajectoryOptCfg:
     # all fields of the JAX config, so the dict an artifact records
     # (GAIT_*.json "trajectory_opt") compares one to one; the port reads all
-    # but enable_traj_opt, compute_predictions and ilqr_reg
+    # but enable_traj_opt and compute_predictions
     enable_traj_opt: bool = True
     num_diffuse_steps: int = 2
     num_diffuse_steps_init: int = 10
@@ -47,8 +53,13 @@ class TrajectoryOptCfg:
     gamma: float = 1.0
     interp_method: str = "spline"
     compute_predictions: bool = True
-    # refinement after the diffusion sweep; the port has "fd" (central
-    # differences through the fast rollout) only
+    # refinement after the diffusion sweep:
+    # "fd"       = normalized-gradient ascent with a batched central-difference
+    #              gradient through the fast (kernel) rollout,
+    # "gradient" = the same ascent with the exact gradient, autograd through
+    #              the plain engine,
+    # "ilqr"     = time-varying LQR (Riccati) sweeps on the plain engine's
+    #              linearizations, regularized from ilqr_reg
     polish_iters: int = 0
     polish_method: str = "fd"
     polish_lr: float = 0.05
@@ -103,6 +114,7 @@ class RolloutState:
     reset_buf: torch.Tensor
     t: torch.Tensor              # rollout time [s]
     stones: Optional[StoneState] = None
+    measured_heights: Optional[torch.Tensor] = None  # [B, P] under the height scan
 
     def replace(self, **changes) -> "RolloutState":
         return dataclasses.replace(self, **changes)
@@ -126,17 +138,21 @@ class RobotBatchRollout(LeggedRobot):
             projected_gravity=state.projected_gravity, foot_positions=state.foot_positions,
             foot_velocities=state.foot_velocities, geom_forces=state.geom_forces,
             reset_buf=torch.zeros_like(state.reset_buf),
-            t=state.episode_length.to(torch.float32) * self.dt, stones=state.stones)
+            t=state.episode_length.to(torch.float32) * self.dt, stones=state.stones,
+            measured_heights=state.measured_heights)
 
     def rollout_step(self, rs: RolloutState, actions: torch.Tensor,
-                     env_params: EnvPhysParams) -> Tuple[RolloutState, torch.Tensor]:
+                     env_params: EnvPhysParams, differentiable: bool = False
+                     ) -> Tuple[RolloutState, torch.Tensor]:
         """One control step of a rollout env: decimated physics + reward; no
         resets, pushes or command resampling."""
         clip_a = self.cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
         phys, torques, report, _ = self._physics_substeps(rs.phys, actions, env_params,
-                                                          rs.last_dof_vel)
-        grav = torch.tensor([0.0, 0.0, -1.0], device=self.device).expand_as(phys.base_pos)
+                                                          rs.last_dof_vel,
+                                                          differentiable=differentiable)
+        grav = torch.tensor([0.0, 0.0, -1.0], dtype=phys.base_pos.dtype,
+                            device=self.device).expand_as(phys.base_pos)
         rs = rs.replace(
             phys=phys, actions=actions, torques=torques,
             base_lin_vel=quat_rotate_inverse(phys.base_quat, phys.base_lin_vel),
@@ -148,6 +164,8 @@ class RobotBatchRollout(LeggedRobot):
             phys, gf, stones = self._apply_obstacles(rs.phys, rs.foot_positions,
                                                      rs.foot_velocities, rs.geom_forces, rs.stones)
             rs = rs.replace(phys=phys, geom_forces=gf, stones=stones)
+        if self.num_height_points:
+            rs = rs.replace(measured_heights=self._get_heights(rs.phys))
         if len(self.termination_geoms):
             forces = rs.geom_forces[:, self.termination_geoms]
             rs = rs.replace(reset_buf=torch.any(torch.linalg.norm(forces, dim=-1) > 1.0, dim=-1))
@@ -162,16 +180,18 @@ class RobotBatchRollout(LeggedRobot):
                         feet_contact_time=ctx["feet_contact_time"] * ctx["contact_filt"])
         return rs, rew
 
-    def rollout_batch(self, state: EnvState, all_us: torch.Tensor) -> torch.Tensor:
+    def rollout_batch(self, state: EnvState, all_us: torch.Tensor,
+                      differentiable: bool = False) -> torch.Tensor:
         """Per-step rewards ``[E, S, H+1]`` of S candidate control sequences
-        ``all_us`` ``[E, S, H+1, A]`` per main env."""
+        ``all_us`` ``[E, S, H+1, A]`` per main env (on the plain engine, so
+        that derivatives flow, with ``differentiable``)."""
         E, S, H1, A = all_us.shape
         rs = tree_map(lambda x: _repeat_samples(x, S), self.main_to_rollout(state))
         ep = tree_map(lambda x: _repeat_samples(x, S), state.env_params)
         us = all_us.reshape(E * S, H1, A)
         rews = []
         for t in range(H1):
-            rs, rew = self.rollout_step(rs, us[:, t], ep)
+            rs, rew = self.rollout_step(rs, us[:, t], ep, differentiable=differentiable)
             rews.append(rew)
         return torch.stack(rews, dim=1).reshape(E, S, H1)
 
@@ -182,8 +202,9 @@ class RobotTrajGradSampling(RobotBatchRollout):
     def __init__(self, cfg: RobotTrajGradSamplingCfg, device="cuda"):
         super().__init__(cfg, device=device)
         to = cfg.trajectory_opt
-        if to.polish_iters > 0 and to.polish_method != "fd":
-            raise NotImplementedError(f"polish_method={to.polish_method!r} is not ported yet")
+        if to.polish_iters > 0 and to.polish_method not in ("fd", "gradient", "ilqr"):
+            raise ValueError(f"unknown polish_method {to.polish_method!r}: 'fd', 'gradient' "
+                             f"or 'ilqr'")
         self.traj_opt_cfg = TrajOptConfig(
             num_samples=to.num_samples, temp_sample=to.temp_sample,
             horizon_samples=to.horizon_samples, horizon_nodes=to.horizon_nodes,
@@ -236,7 +257,8 @@ class RobotTrajGradSampling(RobotBatchRollout):
                                   initial: bool = False, n_diffuse: Optional[int] = None,
                                   noise: Optional[torch.Tensor] = None):
         """Diffuse the node trajectories against rollouts from the current main
-        state, then polish them (fd).  ``noise`` injects the sampling draws."""
+        state, then polish them (``trajectory_opt.polish_method``).  ``noise``
+        injects the sampling draws."""
         if n_diffuse is None:
             n_diffuse = (self.traj_opt_cfg.num_diffuse_steps_init if initial
                          else self.traj_opt_cfg.num_diffuse_steps)
@@ -245,10 +267,71 @@ class RobotTrajGradSampling(RobotBatchRollout):
             nodes, rollout_fn, n_diffuse, generator=generator or self.generator, noise=noise)
         to = self.cfg.trajectory_opt
         if to.polish_iters > 0:
-            nodes, pinfo = self.traj_sampler.polish_fd(nodes, rollout_fn, to.polish_iters,
-                                                       to.polish_lr, eps=to.polish_fd_eps)
+            if to.polish_method == "ilqr":
+                nodes, pinfo = self.polish_riccati(state, nodes, to.polish_iters)
+            elif to.polish_method == "fd":
+                nodes, pinfo = self.traj_sampler.polish_fd(nodes, rollout_fn, to.polish_iters,
+                                                           to.polish_lr, eps=to.polish_fd_eps)
+            else:
+                diff_fn = lambda all_us: self.rollout_batch(state, all_us, differentiable=True)
+                nodes, pinfo = self.traj_sampler.polish(nodes, diff_fn, to.polish_iters,
+                                                        to.polish_lr)
             info = dict(info, **pinfo)
         return nodes, info
+
+    # ---- Riccati / iLQR refinement ----
+    @staticmethod
+    def _rollout_dyn_split(rs: RolloutState) -> Dict[str, object]:
+        """The fields a rollout step propagates (the iLQR state); the rest
+        (commands, and what each step recomputes from ``phys``: torques,
+        body-frame velocities, foot and contact states) is context."""
+        return {f: getattr(rs, f) for f in ("phys", "last_actions", "last_dof_vel",
+                                            "feet_air_time", "feet_contact_time",
+                                            "last_contacts", "t")}
+
+    def ilqr_problem(self, state: EnvState):
+        """``(step_fn, x0, ctx)`` of the iLQR over the rollout dynamics from
+        the main ``state``: ``step_fn(x [N, n], u [N, A], ctx_rows)`` is one
+        differentiable rollout control step of the flat states ``x``
+        (:func:`make_flattener` over :meth:`_rollout_dyn_split`), ``x0``
+        ``[E, n]``, ``ctx`` the per-env rollout state and physics
+        parameters."""
+        rs0 = self.main_to_rollout(state)
+        dyn0 = self._rollout_dyn_split(rs0)
+        leaves, rebuild = tree_flatten(dyn0)
+        flatten, unflatten, _ = make_flattener(rebuild([l[0] for l in leaves]))
+
+        def step_fn(x, u, ctx):
+            rs_ctx, ep = ctx
+            rs_n, rew = self.rollout_step(rs_ctx.replace(**unflatten(x)), u, ep,
+                                          differentiable=True)
+            return flatten(self._rollout_dyn_split(rs_n)), rew
+
+        return step_fn, flatten(dyn0), (rs0, state.env_params)
+
+    def polish_riccati(self, state: EnvState, nodes: torch.Tensor,
+                       n_iters: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Refine the mean node trajectories by batched time-varying LQR
+        sweeps over the plain engine's linearizations, then project back to
+        nodes (node 0 pinned).  Monotone at the node level: the projection
+        is kept per env only where it scores better than the incumbent on
+        the fast rollout (the spline projection of an iLQR-optimal dense
+        sequence can lose the gain)."""
+        to = self.cfg.trajectory_opt
+        with torch.no_grad():
+            step_fn, x0, ctx = self.ilqr_problem(state)
+            us_opt, ilqr_info = ilqr_solve_batched(step_fn, x0, self.node2u_batch(nodes),
+                                                   ctx=ctx, n_iters=n_iters,
+                                                   reg_init=to.ilqr_reg)
+            new_nodes = self.u2node_batch(us_opt)
+            new_nodes[:, 0] = nodes[:, 0]
+            disc = self.traj_sampler._disc()
+            score = lambda nds: torch.sum(
+                self.rollout_batch(state, self.node2u_batch(nds)[:, None])[:, 0] * disc, dim=-1)
+            J_old, J_new = score(nodes), score(new_nodes)
+            nodes = torch.where((J_new > J_old)[:, None, None], new_nodes, nodes)
+        return nodes, dict(polish_gain=(J_new - J_old).clamp(min=0.0).mean(),
+                           ilqr_accept=ilqr_info.improved.mean())
 
     def shift_trajectory_batch(self, nodes: torch.Tensor,
                                append_action: Optional[torch.Tensor] = None):

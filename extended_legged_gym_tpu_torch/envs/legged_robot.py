@@ -26,7 +26,10 @@ same predicate at construction and steps them with
 ``physics/engine.EngineEnvStep``: each substep's torques computed here (P,
 V, T or the actuator network), then one plain ABA step
 (``EngineEnvStep.engine_substeps`` counts them).  The kernel routes never
-give way to it: a kernel that fails to build or launch raises.
+give way to it: a kernel that fails to build or launch raises.  The
+gradient and iLQR polish ask for the same route on any scene with
+``differentiable=True``, since autograd and forward-mode derivatives flow
+through the plain engine and not through a kernel.
 
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
@@ -318,6 +321,9 @@ class LeggedRobot:
                 model, self.sim_params, self.terrain, cfg.control.decimation, p_gains, d_gains,
                 model.default_dof_pos, cfg.control.action_scale,
                 control_type=cfg.control.control_type)
+        # the differentiable route (autograd and forward mode through the
+        # plain engine, asked for by the gradient and iLQR polish)
+        self.grad_step = self.engine_step or EngineEnvStep(model, self.sim_params, self.terrain)
 
         T = model.torch(self.device)
         self.default_dof_pos = T["default_dof_pos"]
@@ -580,16 +586,22 @@ class LeggedRobot:
 
     def _physics_substeps(self, phys: PhysState, actions: torch.Tensor,
                           env_params: EnvPhysParams, last_dof_vel: torch.Tensor,
-                          actuator_hidden=None):
+                          actuator_hidden=None, differentiable: bool = False):
         """Decimation loop (torques recomputed every substep):
         ``(phys, tau_last, report, actuator_hidden)``.  P and T control run it
         fused in one kernel launch on the card; V control and the actuator
         network launch one substep at a time, the network's hidden state
         advancing per substep; the engine route calls the plain engine once
-        per substep."""
-        if self.decimated_step is not None:
+        per substep.  ``differentiable=True`` (and only that) takes the
+        engine route on any scene, the torques computed here, so that
+        gradients and Jacobians flow through the step: the kernels define no
+        derivative, as the JAX package's fused kernels define no VJP."""
+        if differentiable:
+            step = self.grad_step
+        elif self.decimated_step is not None:
             return (*self.decimated_step(phys, actions, env_params), actuator_hidden)
-        step = self.engine_step if self.engine_step is not None else self.substep
+        else:
+            step = self.engine_step if self.engine_step is not None else self.substep
         for _ in range(self.cfg.control.decimation):
             tau, actuator_hidden = self._compute_torques(actions, phys, last_dof_vel,
                                                          actuator_hidden)

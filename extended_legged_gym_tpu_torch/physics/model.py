@@ -107,3 +107,53 @@ def body_indices_matching(model: RobotModel, patterns) -> np.ndarray:
         patterns = [patterns]
     return np.array([i for i, n in enumerate(model.body_names)
                      if any(p in n for p in patterns)], dtype=np.int64)
+
+
+def _axis_angle_matrix(axis: np.ndarray, angle: float) -> np.ndarray:
+    """Rodrigues rotation matrix (host numpy)."""
+    a = np.asarray(axis, dtype=np.float64)
+    a = a / max(np.linalg.norm(a), 1e-12)
+    K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * (K @ K)
+
+
+def host_forward_kinematics(model: RobotModel, joint_pos=None):
+    """Body poses in the base frame at a joint configuration (default: the
+    default pose), in host numpy: ``(body_rot [nb, 3, 3], body_pos [nb, 3])``
+    in float32, body 0 the identity."""
+    q = np.asarray(model.default_dof_pos if joint_pos is None else joint_pos, dtype=np.float64)
+    R = [np.eye(3)] * model.nb
+    p = [np.zeros(3)] * model.nb
+    for i in range(1, model.nb):
+        par = model.parent[i]
+        Rj = np.asarray(model.joint_origin_rot[i], dtype=np.float64)
+        pj = np.asarray(model.joint_origin_pos[i], dtype=np.float64)
+        axis = np.asarray(model.joint_axis[i], dtype=np.float64)
+        if model.joint_types[i - 1] == "prismatic":
+            Rq, pq = np.eye(3), axis * q[i - 1]
+        else:
+            Rq, pq = _axis_angle_matrix(axis, q[i - 1]), np.zeros(3)
+        R[i] = R[par] @ Rj @ Rq
+        p[i] = p[par] + R[par] @ pj + R[par] @ Rj @ pq
+    return np.stack(R).astype(np.float32), np.stack(p).astype(np.float32)
+
+
+def composite_rigid_body(model: RobotModel, joint_pos=None):
+    """The whole robot at a fixed joint configuration lumped into one rigid
+    body about the base origin: ``(total mass, composite inertia [3, 3] about
+    the composite COM, COM [3], geom offsets in the base frame [ng, 3])``
+    (the pose-adapt task's robot: joints frozen, gravity off)."""
+    R, p = host_forward_kinematics(model, joint_pos)
+    mass = np.asarray(model.mass, dtype=np.float64)
+    com_b = np.asarray(model.com, dtype=np.float64)
+    I_b = np.asarray(model.inertia, dtype=np.float64)
+    total = float(mass.sum())
+    coms_base = p + np.einsum("bij,bj->bi", R, com_b)
+    com = (mass[:, None] * coms_base).sum(0) / max(total, 1e-9)
+    I = np.zeros((3, 3))
+    for i in range(model.nb):
+        r = coms_base[i] - com
+        I += R[i] @ I_b[i] @ R[i].T + mass[i] * ((r @ r) * np.eye(3) - np.outer(r, r))
+    gb = np.asarray(model.geom_body)
+    geom_off = p[gb] + np.einsum("gij,gj->gi", R[gb], np.asarray(model.geom_offset, np.float64))
+    return total, I.astype(np.float32), com.astype(np.float32), geom_off.astype(np.float32)

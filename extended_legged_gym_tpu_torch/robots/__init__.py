@@ -1,6 +1,8 @@
-"""Task registrations (the ported subset of ``robots/__init__.py``)."""
+"""Task registrations (port of ``robots/__init__.py``): the JAX registry's 59
+tasks."""
 from __future__ import annotations
 
+from ..envs.batch_rollout import RobotBatchRollout, RobotTrajGradSampling
 from ..envs.legged_robot import LeggedRobot
 from ..envs.navigation import RobotBatchRolloutNav
 from ..envs.percept import RobotBatchRolloutPercept
@@ -100,3 +102,39 @@ for _name, _cfg in (("anymal_c_nav", task_variants.anymal_c_nav_cfg),
                     ("elair_barrier_nav", task_variants.elair_nav_barrier_cfg),
                     ("elair_timberpile_nav", task_variants.elair_nav_timberpile_cfg)):
     task_registry.register(_name, RobotBatchRolloutNav, _cfg, None)
+
+# batch rollouts, sampling MPC and base-pose adaptation
+task_registry.register("go2_dialmpc_flat", RobotTrajGradSampling, go2.go2_dialmpc_flat_cfg, None)
+task_registry.register("go2_batch_rollout", RobotBatchRollout, task_variants.go2_batch_rollout_cfg,
+                       go2.go2_ppo_cfg)
+task_registry.register("go2_batch_rollout_flat", RobotBatchRollout,
+                       task_variants.go2_batch_rollout_flat_cfg, go2.go2_ppo_cfg)
+task_registry.register("go2_traj_grad_sampling", task_variants.Go2TrajGradSampling,
+                       task_variants.go2_traj_grad_sampling_cfg, None)
+task_registry.register("cassie_traj_grad_sampling", RobotTrajGradSampling,
+                       task_variants.cassie_traj_grad_sampling_cfg, None)
+for _name, _cfg in (("anymal_c_batch_rollout", task_variants.anymal_c_batch_rollout_cfg),
+                    ("anymal_c_batch_rollout_flat", task_variants.anymal_c_batch_rollout_flat_cfg)):
+    task_registry.register(_name, RobotBatchRollout, _cfg,
+                           lambda _exp=_name: anymal_c.anymal_c_ppo_cfg(_exp))
+task_registry.register("anymal_c_dialmpc_flat", anymal_c_traj.AnymalCTrajGradSampling,
+                       task_variants.anymal_c_dialmpc_flat_cfg, None)
+for _name, _cfg in (("elspider_air_batch_rollout", task_variants.elspider_air_batch_rollout_cfg),
+                    ("elspider_air_batch_rollout_flat",
+                     task_variants.elspider_air_batch_rollout_flat_cfg)):
+    task_registry.register(_name, elspider_air.ElSpider, _cfg, elspider_air.elspider_air_ppo_cfg)
+for _name, _cfg in (("elspider_air_traj_grad_sampling",
+                     task_variants.elspider_air_traj_grad_sampling_cfg),
+                    ("elspider_air_dialmpc", task_variants.elspider_air_dialmpc_cfg),
+                    ("elspider_air_dialmpc_flat", task_variants.elspider_air_dialmpc_flat_cfg)):
+    task_registry.register(_name, task_variants.ElSpiderAirTrajGradSampling, _cfg, None)
+for _name, _cls, _cfg in (
+        ("anymal_c_base_pose_adapt", task_variants.AnymalCBasePoseAdapt,
+         task_variants.anymal_c_base_pose_adapt_cfg),
+        ("anymal_c_base_pose_ctrl", task_variants.AnymalCBasePoseCtrl,
+         task_variants.anymal_c_base_pose_ctrl_cfg),
+        ("el_mini_base_pose_adapt", task_variants.ElMiniBasePoseAdapt,
+         task_variants.el_mini_base_pose_adapt_cfg),
+        ("el_mini_base_pose_ctrl", task_variants.ElMiniBasePoseCtrl,
+         task_variants.el_mini_base_pose_ctrl_cfg)):
+    task_registry.register(_name, _cls, _cfg, task_variants.pose_adapt_train_cfg)

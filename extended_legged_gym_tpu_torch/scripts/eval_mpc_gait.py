@@ -9,6 +9,7 @@ speed ratio, the uprightness and the base height, and the resets.
 Usage (from the repository root, on a CUDA machine):
   python -m extended_legged_gym_tpu_torch.scripts.eval_mpc_gait \
       [--ckpt path.pkl] [--cycles N] [--cmd V] [--envs E] [--seed S] [--out file.json]
+      [--polish {fd,gradient,ilqr}] [--polish-iters N]
 Prints one JSON line (and writes it to ``--out``); GAIT_torch_r*.json are its output.
 """
 import argparse
@@ -29,6 +30,8 @@ DEFAULT_CKPT = os.path.join(_ROOT, "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/mod
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", default=DEFAULT_CKPT)
+    ap.add_argument("--polish", default=None, choices=[None, "fd", "gradient", "ilqr"])
+    ap.add_argument("--polish-iters", type=int, default=None)
     ap.add_argument("--cycles", type=int, default=300)
     ap.add_argument("--warm", type=int, default=6, help="warm-up cycles at 6 diffusion steps")
     ap.add_argument("--cmd", type=float, default=0.7)
@@ -41,6 +44,10 @@ def main():
     E, cmd = args.envs, args.cmd
     cfg = anymal_c_traj_sampling_cfg(num_main_envs=E)
     cfg.rl_warmstart.policy_checkpoint = args.ckpt
+    if args.polish is not None:
+        cfg.trajectory_opt.polish_method = args.polish
+    if args.polish_iters is not None:
+        cfg.trajectory_opt.polish_iters = args.polish_iters
     cfg.commands.resampling_time = 1e9          # pin commands for the metric
     cfg.commands.ranges.lin_vel_x = [cmd, cmd]
     cfg.commands.ranges.lin_vel_y = [0.0, 0.0]

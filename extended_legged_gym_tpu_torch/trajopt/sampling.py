@@ -94,6 +94,9 @@ class TrajGradSampling:
             nodes = self.update_fn(nodes, samples, rewards)
             infos.append(dict(rew_mean=rewards.mean(dim=(1, 2)),
                               rew_best=rewards.sum(dim=-1).amax(dim=1) / (cfg.horizon_samples + 1)))
+        if not infos:
+            empty = torch.zeros(0, E, device=nodes.device)
+            return nodes, dict(rew_mean=empty, rew_best=empty)
         return nodes, {k: torch.stack([d[k] for d in infos]) for k in infos[0]}
 
     def shift(self, nodes: torch.Tensor, n_steps: int = 1,
@@ -107,6 +110,36 @@ class TrajGradSampling:
             tail = append_action[..., None, :].expand(us[..., -n_steps:, :].shape)
         us = torch.cat([us[..., :-n_steps, :], tail], dim=-2)
         return self.u2node(us)
+
+    def polish(self, nodes: torch.Tensor, rollout_fn: Callable, n_iters: int, lr: float
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """First-order refinement of the mean node trajectories by
+        backpropagating the summed discounted reward through the spline and
+        a differentiable ``rollout_fn``: normalized-gradient ascent (the norm
+        taken over every node, node 0 included, as in the JAX package), the
+        three line-search scales tried in one rollout batch, a per-env
+        monotone accept, node 0 pinned."""
+        disc = self._disc()
+        scales = torch.tensor([1.0, 0.25, 0.0625], device=nodes.device)
+        E = nodes.shape[0]
+        gains = []
+        for _ in range(n_iters):
+            with torch.enable_grad():
+                nds = nodes.detach().requires_grad_(True)
+                J_old = torch.sum(rollout_fn(self.node2u(nds)[:, None])[:, 0] * disc, dim=-1)
+                g, = torch.autograd.grad(J_old.sum(), nds)
+            J_old = J_old.detach()
+            gn = g / (torch.linalg.norm(g.reshape(E, -1), dim=-1)[:, None, None] + 1e-8)
+            cands = nodes[:, None] + (lr * scales)[None, :, None, None] * gn[:, None]
+            cands[:, :, 0] = nodes[:, None, 0]                  # the executing node stays
+            with torch.no_grad():
+                Js = torch.sum(rollout_fn(self.node2u(cands)) * disc, dim=-1)   # [E, 3]
+            best = torch.argmax(Js, dim=1)
+            J_new = Js.gather(1, best[:, None])[:, 0]
+            cand = cands[torch.arange(E, device=nodes.device), best]
+            nodes = torch.where((J_new > J_old)[:, None, None], cand, nodes)
+            gains.append((J_new - J_old).clamp(min=0.0).mean())
+        return nodes, dict(polish_gain=torch.stack(gains))
 
     def polish_fd(self, nodes: torch.Tensor, rollout_fn: Callable, n_iters: int, lr: float,
                   eps: float = 0.05) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

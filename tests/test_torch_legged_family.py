@@ -2,7 +2,7 @@
 and the ANYmal-C, Go2 and ElSpider pose, load, stand, student and
 foot-tracking variants against the JAX package, on the CPU: each of the
 eighteen tasks' configs and ``go2_dialmpc_flat_cfg`` field by field, the new
-models, the registry's 42 tasks (31 up to this family); each task's observation, privileged
+models, the registry (59 tasks, 31 up to this family); each task's observation, privileged
 observation and every active reward term on the same drawn states (4 envs);
 each base term the port adds (termination and no_fly among them) and each
 variant term, one case per term.
@@ -21,48 +21,18 @@ import pytest
 from extended_legged_gym_tpu.physics.serialize import load_model as jload_model
 from extended_legged_gym_tpu.robots import go2 as jgo2
 from extended_legged_gym_tpu.robots import task_registry as jtask_registry
-from extended_legged_gym_tpu.utils.config import class_to_dict as jclass_to_dict
 from extended_legged_gym_tpu_torch.physics import load_model
 from extended_legged_gym_tpu_torch.robots import go2
-from extended_legged_gym_tpu_torch.utils.config import class_to_dict
 from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
-from torch_family import TASKS, drawn_state, jax_ctx, make_pair, to_port
+from torch_family import TASKS, assert_cfg_equal, drawn_state, jax_ctx, make_pair, to_port
 
 DATA = "extended_legged_gym_tpu/robots/data/"
-# fields of the JAX configs the port does not carry: the default joint
-# angles (both envs take the model JSON's, held below) and the runner's
-# staged-reward flag (the JAX runner never reads it)
-NOT_CARRIED = {"init_state.default_joint_angles", "runner.multi_stage_rewards"}
-
-
-def _flat(d, prefix=""):
-    out = {}
-    for k, v in d.items():
-        if isinstance(v, dict) and v and not k.endswith(("stiffness", "damping",
-                                                         "default_joint_angles")):
-            out.update(_flat(v, f"{prefix}{k}."))
-        else:
-            out[prefix + k] = v
-    return out
-
-
-def assert_cfg_equal(cfg, jcfg):
-    """Every field of the port's config equals the JAX one's; every JAX field
-    the port lacks is at the JAX class's default, or in NOT_CARRIED."""
-    got, want = _flat(class_to_dict(cfg)), _flat(jclass_to_dict(jcfg))
-    default = _flat(jclass_to_dict(type(jcfg)()))
-    for k, v in got.items():
-        assert k in want, k
-        assert v == want[k], (k, v, want[k])
-    for k in set(want) - set(got) - NOT_CARRIED:
-        assert want[k] == default.get(k, 0.0), (k, want[k])
-
-
 @pytest.mark.parametrize("task", TASKS + ("go2_dialmpc_flat",))
 def test_config_matches_jax(task):
     if task == "go2_dialmpc_flat":
         cfg, jcfg, tc, jtc = go2.go2_dialmpc_flat_cfg(), jgo2.go2_dialmpc_flat_cfg(), None, None
-        assert "go2_dialmpc_flat" not in task_registry.task_classes
+        assert task_registry.task_classes["go2_dialmpc_flat"].__name__ == \
+            jtask_registry.task_classes["go2_dialmpc_flat"].__name__
     else:
         (cfg, tc), (jcfg, jtc) = task_registry.get_cfgs(task), jtask_registry.get_cfgs(task)
         assert task_registry.task_classes[task].__name__ == \
@@ -94,7 +64,7 @@ def test_model_loads_as_in_jax(robot, sizes):
 
 
 def test_registry_holds_the_ported_tasks():
-    assert len(task_registry.task_classes) == 42
+    assert len(task_registry.task_classes) == 59
     assert set(TASKS) <= set(task_registry.task_classes) <= set(jtask_registry.task_classes)
     for task in TASKS:
         env_cfg, train_cfg = task_registry.get_cfgs(task)

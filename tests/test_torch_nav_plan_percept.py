@@ -1,5 +1,5 @@
 """The navigation, kinematic-planning and perception envs against the JAX
-package (mirrors tests/test_nav_plan_percept.py), and the registry's 42
+package (mirrors tests/test_nav_plan_percept.py), and the registry's 59
 tasks.
 
 Nav commands to 1e-5 (the goal teleport makes them vanish to 1e-5), a nav
@@ -69,7 +69,7 @@ def assert_step_matches(jenv, env, js, actions, err=""):
 
 
 def test_registry_holds_the_new_tasks():
-    assert len(task_registry.task_classes) == 42
+    assert len(task_registry.task_classes) == 59
     assert set(NEW_TASKS) <= set(task_registry.task_classes) <= set(jtask_registry.task_classes)
     for task in NEW_TASKS:
         assert (task_registry.task_classes[task].__name__

@@ -19,7 +19,10 @@ import, and every task of the LeggedRobot family and its variants steps (the
 rough ones on a 2 x 2 grid); the triangle-mesh, SDF, confined, OBJ,
 obstacle and stone modules and the percept, navigation and planning envs
 import, and each of the 11 tasks they add steps (the confined arenas on the
-engine route, 2 x 2 grids of 4 m), the registry holding 42 tasks."""
+engine route, 2 x 2 grids of 4 m); the iLQR, pose-adapt and gait-scheduler
+modules import, a differentiable rollout and a one-iteration iLQR polish
+run on the MPC task, the ElSpider MPC task's gait-scheduler rewards and an
+el_mini_base_pose_ctrl env step, the registry holding all 59 tasks."""
 import os
 import subprocess
 import sys
@@ -74,7 +77,8 @@ SCRIPT = textwrap.dedent(f"""
               "robots.anymal_b", "robots.cassie", "robots.anymal_c_variants",
               "utils.random_walker", "utils.raibert_planner", "perception.trimesh",
               "perception.sdf", "terrain.confined", "terrain.mesh", "terrain.obstacles",
-              "terrain.dynamic_obstacles", "envs.percept", "envs.navigation", "envs.plan_grad"):
+              "terrain.dynamic_obstacles", "envs.percept", "envs.navigation", "envs.plan_grad",
+              "trajopt.riccati", "envs.pose_adapt", "utils.gait_scheduler"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -121,7 +125,20 @@ SCRIPT = textwrap.dedent(f"""
         assert bool(torch.isfinite(s.obs).all()) and bool(torch.isfinite(s.rew).all()), task
         assert (env.engine_step is not None) == (task in {
             "anymal_c_timberpile_nav", "elair_barrier_nav", "elair_timberpile_nav"}), task
-    assert len(task_registry.task_classes) == 42
+    cfg, _ = task_registry.get_cfgs("anymal_c_traj_grad_sampling")
+    to = cfg.trajectory_opt
+    to.num_samples, to.horizon_samples, to.horizon_nodes, to.polish_method = 2, 2, 1, "ilqr"
+    env, _ = task_registry.make_env("anymal_c_traj_grad_sampling", env_cfg=cfg, device="cpu")
+    nodes, info = env.optimize_all_trajectories(env.reset_all(seed=0), torch.zeros(1, 2, 12),
+                                                n_diffuse=1)
+    assert bool(torch.isfinite(nodes).all()) and float(info["polish_gain"]) >= 0.0
+    for task in ("elspider_air_traj_grad_sampling", "el_mini_base_pose_ctrl"):
+        cfg, _ = task_registry.get_cfgs(task)
+        cfg.env.num_envs = 2
+        env, _ = task_registry.make_env(task, env_cfg=cfg, device="cpu")
+        s = env.step(env.reset_all(seed=0), torch.zeros(2, env.num_actions))
+        assert bool(torch.isfinite(s.obs).all()) and bool(torch.isfinite(s.rew).all()), task
+    assert len(task_registry.task_classes) == 59
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     from extended_legged_gym_tpu_torch.models.networks import read_checkpoint

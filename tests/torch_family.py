@@ -2,14 +2,17 @@
 variants (tests/test_torch_legged_*.py): the port's and the JAX package's
 env of a registered task at a small size, the JAX state carried into the
 port with the fields torch_parity.to_torch_state leaves out, and states
-with every field the reward terms read drawn from a numpy seed."""
+with every field the reward terms read drawn from a numpy seed; configs
+compared field by field."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from extended_legged_gym_tpu.robots import task_registry as jtask_registry
+from extended_legged_gym_tpu.utils.config import class_to_dict as jclass_to_dict
 from extended_legged_gym_tpu_torch import robots  # noqa: F401
+from extended_legged_gym_tpu_torch.utils.config import class_to_dict
 from extended_legged_gym_tpu_torch.utils.task_registry import task_registry
 from torch_parity import to_torch_state
 
@@ -129,3 +132,32 @@ def jax_ctx(jenv, s):
                 first_contact=(s.feet_air_time > 0.0) & contact_filt,
                 feet_air_time=s.feet_air_time + jenv.dt,
                 feet_contact_time=s.feet_contact_time + jenv.dt)
+
+
+# fields of the JAX configs the port does not carry: the default joint
+# angles (both envs take the model JSON's, held below) and the runner's
+# staged-reward flag (the JAX runner never reads it)
+NOT_CARRIED = {"init_state.default_joint_angles", "runner.multi_stage_rewards"}
+
+
+def _flat(d, prefix=""):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict) and v and not k.endswith(("stiffness", "damping",
+                                                         "default_joint_angles")):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def assert_cfg_equal(cfg, jcfg):
+    """Every field of the port's config equals the JAX one's; every JAX field
+    the port lacks is at the JAX class's default, or in NOT_CARRIED."""
+    got, want = _flat(class_to_dict(cfg)), _flat(jclass_to_dict(jcfg))
+    default = _flat(jclass_to_dict(type(jcfg)()))
+    for k, v in got.items():
+        assert k in want, k
+        assert v == want[k], (k, v, want[k])
+    for k in set(want) - set(got) - NOT_CARRIED:
+        assert want[k] == default.get(k, 0.0), (k, want[k])
