@@ -79,8 +79,8 @@ Phases (each prints its seconds; the run fails rather than overrun):
    iteration's time;
 14. ElSpider path: B1 with the ElSpider Air hexapod's tables (19 bodies, 18
    joints, 46 spheres, 6 feet) against its plain version run in float64 at
-   ELSPIDER_B envs (16 and the fleet's 4096), its 25-step drift at 16
-   reported three ways (drift_report), two launches bit for bit at 4096;
+   ELSPIDER_B envs (16 and the fleet's 4096), its ELSPIDER_DRIFT_STEPS-step
+   drift at 16 reported three ways (drift_report), two launches bit for bit at 4096;
    ELSPIDER_ITERS iterations of elspider_air_flat training at the fleet (B1
    exactly ELSPIDER_ITERS x 24, the other routes 0) with the save/load round
    trip; the committed JAX checkpoint evaluated (16 envs, 50 + 100 steps,
@@ -118,8 +118,8 @@ Phases (each prints its seconds; the run fails rather than overrun):
    with A1's, Go2's, ANYmal-B's, Cassie's and the hexapod's, each on its
    own task's grid from the spawn origins, against the float64 plain
    version at 4096 from near-standing states (each block's shared memory
-   printed), the 10-step drift at 32 reported (drift_report), two launches
-   bit for bit at 4096; the fixed-base regime with the hanging hexapod's
+   printed), the FAMILY_DRIFT_STEPS-step drift at 32 reported
+   (drift_report), two launches bit for bit at 4096; the fixed-base regime with the hanging hexapod's
    tables (foot_track_elspider_air_hang) from the hang config's initial
    states with random actions (the feet in contact counted, the base
    unchanged bit for bit after 1 and 25 steps) and with its base held at
@@ -200,11 +200,35 @@ Phases (each prints its seconds; the run fails rather than overrun):
    for bit: B1 on Cassie's tables at 128 (cassie_traj_grad_sampling's
    rollout batch), B1 at B=1 (the iLQR's node scoring), B2 on the hexapod's
    tables at 512 on elspider_air_dialmpc's grid;
-33. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+33. play: scripts/play on anymal_c_flat from the committed checkpoint
+   (logs/flat_anymal_c/Aug21_12-38-39_r5_ft4, the [128, 64, 32] actor)
+   into a temporary directory: exactly 500 B1 launches at 50 envs (10 s of
+   control steps), the first launch held to the plain step, every
+   observation and action finite, play_log.jsonl and play_states.json
+   written, the mean |vx - cmd| and ms per control step printed, then the
+   device's idle share over 25 profiled control steps;
+34. export: runner.export_policy of play's runner; policy_1.pt (TorchScript)
+   and policy.pt2 (torch.export) loaded on the card and held to the runner's
+   inference policy on 50 observations within 1e-5 (TF32 off); an LSTM
+   policy_lstm_1.pt of a freshly made recurrent runner held to
+   RecurrentInferencePolicy over 5 steps, a reset_memory() and a step;
+35. nccl: init_multi_host at world size 1 on a free local port, one
+   all_reduce that returns its input, shard_batch and replicate of a tree on
+   the card;
+36. weak scaling: scripts/weak_scaling's saturation sweep at 64, 512 and
+   4096 samples (E=2, H=16: B1 at 128, 1024 and 8192 envs), B1's launches
+   exactly 3 chains x 4 rollouts x 17 steps per size, one launch at 8192
+   held to the plain step, then its weak-scaling row at world size 1 in
+   phase 35's group (the same launch count), and the group destroyed;
+37. command options: anymal_c_flat with commands.heading_command and
+   commands.curriculum on at 4096 envs, 24 control steps of the committed
+   flat policy: exactly 24 B1 launches, column 2 the P law of column 3 and
+   the base heading (zero where an env just reset), everything finite;
+38. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-34. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+39. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-35. the kernel line (JSON) and the result line.  B1's entry counts its
+40. the kernel line (JSON) and the result line.  B1's entry counts its
    launches on the MPC path, the flat training path, the distillation path,
    the RL-extension paths and the ANYmal-C variants' stepping; B1's entry
    on the hexapod's tables its launches on the ElSpider path and the
@@ -219,8 +243,12 @@ Phases (each prints its seconds; the run fails rather than overrun):
    anymal_c_percept's and anymal_c_flat_obstacles' launches (phases 25,
    28), B2's anymal_c_nav_barrier's, the hexapod's B2 entry
    elspider_air_rough_raycast's; phases 29 and 31 add each launch to the
-   entry of its tables (B1 on Cassie's a new entry, its times at 128); the
-   others carry their times at the training fleet's 4096.  An entry
+   entry of its tables (B1 on Cassie's a new entry, its times at 128); B1's
+   entry also counts phase 36's launches at 128 and 1024 and its
+   weak-scaling row's, and phase 37's; play's launches (phase 33) and the
+   sweep's at 8192 (phase 36) are entries of their own, with their times at
+   50 and 8192; the others carry their times
+   at the training fleet's 4096.  An entry
    launched no time fails the run.
 
 Exits non-zero, printing no result line, without CUDA or without the port.
@@ -286,6 +314,8 @@ DISTILL_ENVS, DISTILL_ITERS = 256, 3
 # training iterations at the fleet; the SEA task's and the RL extensions'
 # training iterations at the fleet
 ELSPIDER_B, ELSPIDER_ITERS = (16, 4096), 3
+# control steps of the hexapod's drift report (reported, not bounded)
+ELSPIDER_DRIFT_STEPS = 5
 SEA_ITERS, EXT_ITERS = 3, 2
 # Franka (the fixed-base regime): B at franka_batch_rollout's 8 main envs
 # and at franka_cfg's fleet of 1024 (also 8 main envs x 128 rollout
@@ -308,7 +338,7 @@ FAMILY_KERNELS = (("B1", "a1_flat"), ("B1", "go2_flat"), ("B2", "a1"), ("B2", "g
 # heights do; at HANG_TIGHT_Z, 14 mm, float32 rounding alone moves the plain step by
 # up to ONE_STEP_ATOL in a few envs, and track_float32 holds the kernel there)
 FAMILY_DRIFT_B, HANG_LOADED_Z, HANG_TIGHT_Z = 32, 0.175, 0.17
-FAMILY_DRIFT_STEPS = 25
+FAMILY_DRIFT_STEPS = 5
 FAMILY_TRAIN = ("a1", "go2_rough", "anymal_b", "cassie", "elspider_air_rough",
                 "anymal_c_rough_teacher", "anymal_c_student", "pose_go2_flat",
                 "foot_track_elspider_air_hang")
@@ -366,6 +396,15 @@ POSE_TASKS = ("anymal_c_base_pose_adapt", "anymal_c_base_pose_ctrl", "el_mini_ba
 POSE_STEPS = 3
 PAIRS_14 = (("B1", "cassie_traj_grad_sampling", 128), ("B1", "anymal_c_traj_grad_sampling", 1),
             ("B2", "elspider_air_dialmpc", 512))
+# this slice: play's run (the committed flat checkpoint through the
+# registry's --load_run), its batch and control steps (10 s / 0.02 s); the
+# export's tolerance (TF32 off); the saturation sweep's sample counts (E=2,
+# H=16: B1 at 2 x S) with its chains, and its weak-scaling row's samples per
+# process; the command options' fleet and control steps
+PLAY_RUN, PLAY_B, PLAY_STEPS = "Aug21_12-38-39_r5_ft4", 50, 500
+EXPORT_ATOL = 1e-5
+SWEEP_S, SWEEP_REPS, WEAK_PER = (64, 512, 4096), 2, 16
+CMD_ENVS, CMD_STEPS = 4096, 24
 ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
 SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
@@ -448,7 +487,8 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
     bufs = step.pack(st, act, ep)
     kms = bench_mpc.cuda_ms(lambda: step.run(bufs), reps=20, warmup=3)
     wms = bench_mpc.cuda_ms(lambda: step.launch(st, act, ep), reps=20, warmup=3)
-    pms = bench_mpc.cuda_ms(lambda: step.plain(st, act, ep), reps=3, warmup=1)
+    # one timed call: the comparison above has run the plain step already
+    pms = bench_mpc.cuda_ms(lambda: step.plain(st, act, ep))
     bound_ms, bound_by, flops, nbytes = launch_bound(step, B)
     kernel_stats[B] = dict(ms=kms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by)
     log(f"{name} at B={B}: kernel {kms:.4f} ms/launch ({wms:.4f} ms with the wrapper's "
@@ -926,7 +966,8 @@ def distill_path(dev):
 
 def elspider_path(dev, stats):
     """B1 with the ElSpider Air tables against plain (one control step at
-    ELSPIDER_B, the 25-step drift at 16, two launches bit for bit at 4096;
+    ELSPIDER_B, the ELSPIDER_DRIFT_STEPS-step drift at 16, two launches bit
+    for bit at 4096;
     ms, plain ms and bound into ``stats``), ELSPIDER_ITERS iterations of
     elspider_air_flat training at the fleet (B1 exactly ELSPIDER_ITERS x 24
     on the hexapod's tables), and a short evaluation of the committed JAX
@@ -934,7 +975,7 @@ def elspider_path(dev, stats):
     light legs its float32 rounding alone moves a joint velocity by about
     0.045 rad/s in a control step from near-standing states with random
     actions (at 4096 envs, against float64), most of ONE_STEP_ATOL's 5e-2.
-    The 25-step drift is reported, not bounded (drift_report): from these
+    The drift is reported, not bounded (drift_report): from these
     states some knees chatter against the joint velocity limit and the
     float32 plain leaves the float64 plain by several rad/s.  Returns the
     largest difference against plain and B1's launches in the training and
@@ -953,7 +994,8 @@ def elspider_path(dev, stats):
         f"envs: {pk.block_shared_bytes(m.nb, m.nj, m.ng, step.nf)} bytes of shared memory")
     err = max(compare_one_step("ElSpider B1", step, B, near_standing(m, B, B, dev, height=h), stats,
                                torch.float64) for B in ELSPIDER_B)
-    drift_report("ElSpider B1", step, 16, near_standing(m, 16, 7, dev, height=h))
+    drift_report("ElSpider B1", step, 16, near_standing(m, 16, 7, dev, height=h),
+                 ELSPIDER_DRIFT_STEPS)
     bit_identical("ElSpider B1", step, 4096, near_standing(m, 4096, 3, dev, height=h))
     phase_done("ElSpider B1 vs plain", t0)
 
@@ -2076,6 +2118,238 @@ def new_pairs_14(dev, stats):
     return errs
 
 
+def play_path(dev, stats):
+    """Phase 33: scripts/play on anymal_c_flat from the committed checkpoint
+    into a temporary directory: exactly PLAY_STEPS B1 launches at PLAY_B,
+    the first launch held to the plain step, every observation and action
+    finite, the files written; ms per control step and the device's idle
+    share over 25 more control steps.  Returns (launches, max difference,
+    the play's output)."""
+    import tempfile
+
+    import torch
+
+    from extended_legged_gym_tpu_torch.scripts.play import play
+    from extended_legged_gym_tpu_torch.utils.task_registry import get_args
+
+    t0 = time.perf_counter()
+    args = get_args(argv=["--task", "anymal_c_flat", "--load_run", PLAY_RUN, "--device", str(dev)])
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        out = play(args, out_dir=d, log_root=os.path.join(ROOT, "logs"))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        names = sorted(os.listdir(d))
+    env, want = out["env"], {k: (PLAY_STEPS if k == "B1" else 0) for k in launch_counts()}
+    log(f"play: {len(out['rows'])} control steps at {env.num_envs} envs, "
+        f"{out['ms_per_step']:.3f} ms per control step (policy and logging included); "
+        f"launches {counts}; files {names}; observations and actions finite {out['finite']}; "
+        f"mean |vx - cmd| {out['mean_abs_vx_err']:.4f}")
+    if counts != want or env.num_envs != PLAY_B:
+        fail(f"play: {env.num_envs} envs, launches {counts}, want {PLAY_B} envs and {want}")
+    if not out["finite"] or not math.isfinite(out["mean_abs_vx_err"]):
+        fail("play: non-finite observations, actions or tracking")
+    if not {"play_log.jsonl", "play_states.json"} <= set(names):
+        fail(f"play wrote {names}")
+    err = compare_one_step("B1 play", env.decimated_step, PLAY_B, out["first"], stats)
+    policy = out["runner"].get_inference_policy()
+    with torch.no_grad():
+        state = env.reset_all(seed=1)
+
+        def steps():
+            nonlocal state
+            for _ in range(25):
+                state = env.step(state, policy(state.obs))
+        _, wall, busy = profiled(steps)
+    log(f"play's env at {PLAY_B} envs, 25 control steps profiled: {wall / 25:.3f} ms per step, "
+        f"device busy {busy / 25:.3f} ms per step, idle share {1.0 - busy / wall:.3f}")
+    phase_done("play", t0)
+    return counts["B1"], err, out
+
+
+def export_path(dev, out):
+    """Phase 34: runner.export_policy of the play's runner into a temporary
+    directory; policy_1.pt and policy.pt2 loaded on the card and held to the
+    runner's inference policy on PLAY_B observations within EXPORT_ATOL (TF32
+    off); an LSTM policy_lstm_1.pt of a freshly made recurrent runner held to
+    RecurrentInferencePolicy over 5 steps, a reset_memory() and one more
+    step."""
+    import tempfile
+
+    import torch
+
+    from extended_legged_gym_tpu_torch.models.networks import RecurrentInferencePolicy
+    from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
+    from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_ppo_cfg
+    from extended_legged_gym_tpu_torch.utils.export import load_pt2_policy
+
+    t0 = time.perf_counter()
+    env, runner = out["env"], out["runner"]
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for matmuls")
+    with torch.no_grad():
+        obs = env.reset_all(seed=2).obs
+        want = runner.get_inference_policy()(obs)
+        with tempfile.TemporaryDirectory() as d:
+            files = runner.export_policy(d)
+            names = [os.path.basename(f) for f in files]
+            got = {"policy_1.pt": torch.jit.load(files[0], map_location=dev)(obs),
+                   "policy.pt2": load_pt2_policy(files[1], dev)(obs)}
+            tc = anymal_c_ppo_cfg()
+            tc.runner.policy_class_name = "ActorCriticRecurrent"
+            rec = OnPolicyRunner(env, tc)
+            lstm_file = rec.export_policy(d)[0]
+            lstm = torch.jit.load(lstm_file, map_location=dev)
+        ref = RecurrentInferencePolicy(rec.network, rec.obs_norm, 1)
+        lstm_err = 0.0
+        for t in range(6):
+            if t == 5:
+                lstm.reset_memory()
+                ref.reset(torch.ones(1, dtype=torch.bool, device=dev))
+            x = obs[t:t + 1]
+            lstm_err = max(lstm_err, (lstm(x) - ref(x)).abs().max().item())
+    errs = {k: (v - want).abs().max().item() for k, v in got.items()}
+    log(f"export: {names} and {os.path.basename(lstm_file)}; largest difference from the "
+        f"runner's policy on {obs.shape[0]} observations: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the LSTM file against RecurrentInferencePolicy over 5 steps and a reset: "
+        f"{lstm_err:.3g} (tolerance {EXPORT_ATOL:g})")
+    if names != ["policy_1.pt", "policy.pt2"] or os.path.basename(lstm_file) != "policy_lstm_1.pt":
+        fail(f"export wrote {names} and {lstm_file}")
+    if not max(*errs.values(), lstm_err) <= EXPORT_ATOL:
+        fail(f"an exported policy differs from the runner's by more than {EXPORT_ATOL:g}")
+    phase_done("export", t0)
+
+
+def nccl_path(dev):
+    """Phase 35: init_multi_host at world size 1 on a free local port (the
+    nccl backend), one all_reduce that returns its input, shard_batch and
+    replicate of a tree on the card.  Returns the mesh (the group stays up
+    for phase 36's weak-scaling row)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from extended_legged_gym_tpu_torch.parallel.distributed import init_multi_host
+    from extended_legged_gym_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    info = init_multi_host(f"127.0.0.1:{port}", 1, 0, device=dev)
+    x = torch.arange(12.0, device=dev).reshape(4, 3)
+    y = x.clone()
+    dist.all_reduce(y)
+    mesh = make_mesh(1, device=dev)
+    tree = {"x": x, "step": (torch.ones(2, device=dev),)}
+    sh, rp = shard_batch(tree, mesh, 4), replicate(tree, mesh)
+    torch.cuda.synchronize()
+    ok = (torch.equal(x, y) and torch.equal(sh["x"], x) and torch.equal(rp["x"], x)
+          and torch.equal(rp["step"][0], tree["step"][0]))
+    log(f"nccl: backend {dist.get_backend()}, {info}; all_reduce, shard_batch and replicate "
+        f"{'return their input' if ok else 'DIFFER'}")
+    if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo") or (
+            info["process_count"] != 1 or not ok):
+        fail("the world-size-1 nccl group misbehaves")
+    phase_done("nccl", t0)
+    return mesh
+
+
+def sweep_path(dev, mesh, stats):
+    """Phase 36: scripts/weak_scaling's saturation sweep at SWEEP_S samples
+    (E=2, H=16: B1 at 2 x S), B1's launches exactly (1 + SWEEP_REPS) chains x
+    4 rollouts x 17 control steps per size, one launch at the largest batch
+    held to the plain step, then its weak-scaling row at world size 1
+    (WEAK_PER samples, the same count of launches).  Returns (the sweep's
+    launches at the largest batch, its launches at the others and the
+    row's, the max difference)."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.parallel.distributed import shutdown
+    from extended_legged_gym_tpu_torch.scripts import weak_scaling as ws
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing
+
+    t0 = time.perf_counter()
+    per_size = (1 + SWEEP_REPS) * ws.CHAIN * 17
+    want = {k: (per_size if k == "B1" else 0) for k in launch_counts()}
+    for S in SWEEP_S:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        r = ws.measure_strong_singlechip(sizes=(S,), device=dev, reps=SWEEP_REPS)[0]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"sweep: {r['rollouts']} rollouts (B1 at {r['rollouts']}): {r['t_rollout_s'] * 1e3:.3f}"
+            f" ms per rollout_batch, {r['rollouts_per_s']:.1f} rollouts/s; launches {counts}")
+        if counts != want:
+            fail(f"the sweep at S={S} launched {counts}, not {want}")
+    B = 2 * max(SWEEP_S)
+    step = ws.rollout_env(2, max(SWEEP_S), 16, dev).decimated_step
+    err = compare_one_step("B1 sweep", step, B, near_standing(step.model, B, 8, dev), stats)
+    zero_launch_counts()
+    row = ws.measure(WEAK_PER, mesh=mesh, device=dev, reps=SWEEP_REPS)
+    torch.cuda.synchronize()
+    weak = launch_counts()["B1"]
+    shutdown()
+    log(f"weak-scaling row at world size 1: {row}; B1 launches {weak}")
+    if weak != per_size or row["devices"] != 1 or not row["t_rollout_s"] > 0:
+        fail(f"the weak-scaling row launched {weak}, not {per_size}, or is malformed: {row}")
+    phase_done("weak scaling", t0)
+    return per_size, per_size * (len(SWEEP_S) - 1) + weak, err
+
+
+def commands_path(dev, policy):
+    """Phase 37: anymal_c_flat with commands.heading_command and
+    commands.curriculum on at CMD_ENVS envs, stepped CMD_STEPS control steps
+    by ``policy`` (play's, the committed flat checkpoint's): B1 exactly CMD_STEPS launches; column 2 of
+    the commands the P law of column 3 and the base heading (zero for envs
+    that reset in the last step); every command, observation and reward
+    finite.  Returns the launches."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.envs.legged_robot import LeggedRobot
+    from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_flat_cfg
+    from extended_legged_gym_tpu_torch.utils.math import quat_rotate, wrap_to_pi
+
+    t0 = time.perf_counter()
+    cfg = anymal_c_flat_cfg()
+    cfg.env.num_envs = CMD_ENVS
+    cfg.commands.heading_command = cfg.commands.curriculum = True
+    env = LeggedRobot(cfg, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        state = env.reset_all(seed=0)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        for _ in range(CMD_STEPS):
+            state = env.step(state, policy(state.obs))
+            finite &= (torch.isfinite(state.obs).all() & torch.isfinite(state.rew).all()
+                       & torch.isfinite(state.commands).all())
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    fwd = quat_rotate(state.phys.base_quat,
+                      torch.tensor([1.0, 0.0, 0.0], device=dev).expand(CMD_ENVS, 3))
+    law = torch.clamp(0.5 * wrap_to_pi(state.commands[:, 3] - torch.atan2(fwd[:, 1], fwd[:, 0])),
+                      -1.0, 1.0)
+    reset = state.reset_buf
+    law_err = (state.commands[~reset, 2] - law[~reset]).abs().max().item()
+    reset_col2 = state.commands[reset, 2].abs().max().item() if bool(reset.any()) else 0.0
+    want = {k: (CMD_STEPS if k == "B1" else 0) for k in counts}
+    log(f"command options: {CMD_STEPS} control steps at {CMD_ENVS} envs: launches {counts}; "
+        f"column 2 - P law max {law_err:.3g} over {int((~reset).sum())} envs, column 2 of the "
+        f"{int(reset.sum())} just reset {reset_col2:g}; heading range "
+        f"[{state.commands[:, 3].min().item():.3f}, {state.commands[:, 3].max().item():.3f}]; "
+        f"lin-vel-x range {state.command_lin_vel_x_range.tolist()}; finite {bool(finite)}")
+    if counts != want:
+        fail(f"the command options' env launched {counts}, not {want}")
+    if not (law_err <= 1e-5 and reset_col2 == 0.0 and bool(finite)):
+        fail("the heading command's column 2 is not its P law, or values are non-finite")
+    phase_done("command options", t0)
+    return counts["B1"]
+
+
 def main():
     import torch
 
@@ -2152,7 +2426,7 @@ def main():
 
     # ---------------- 5. MPC path ----------------
     t0 = time.perf_counter()
-    E, n_warm, n_cycles = 8, 6, 34
+    E, n_warm, n_cycles = 8, 6, 14
     cfg = anymal_c_traj_sampling_cfg(E)
     cfg.rl_warmstart.policy_checkpoint = CKPT
     cfg.commands.resampling_time = 1e9
@@ -2339,7 +2613,15 @@ def main():
     family_err[("B2", "elspider_air")] = max(family_err[("B2", "elspider_air")],
                                              pairs_err[("B2", "elspider_air", 512)])
 
-    # ---------------- 33. flat evaluation ----------------
+    # ---------------- 33-37. play, export, nccl, the saturation sweep, the command options
+    play_stats, sweep_stats = {}, {}
+    play_launches, play_err, played = play_path(dev, play_stats)
+    export_path(dev, played)
+    mesh = nccl_path(dev)
+    sweep_launches, other_sweep_launches, sweep_err = sweep_path(dev, mesh, sweep_stats)
+    cmd_launches = commands_path(dev, played["runner"].get_inference_policy())
+
+    # ---------------- 38. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -2352,7 +2634,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 34. timing ----------------
+    # ---------------- 39. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -2362,7 +2644,7 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 35. result ----------------
+    # ---------------- 40. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
@@ -2375,7 +2657,11 @@ def main():
             ("flat_decimated_physics_step",
              flat_launches + train_launches + distill_launches + ext_launches
              + fam("B1", "anymal_c") + percept_launches + new_launches[("B1", "anymal_c")]
-             + polish_launches, flat_err, flat_stats[4096]),
+             + polish_launches + other_sweep_launches + cmd_launches, flat_err, flat_stats[4096]),
+            ("flat_decimated_physics_step_play_b50", play_launches, play_err,
+             play_stats[PLAY_B]),
+            ("flat_decimated_physics_step_sweep_b8192", sweep_launches, sweep_err,
+             sweep_stats[2 * max(SWEEP_S)]),
             ("flat_decimated_physics_step_cassie", fam("B1", "cassie"),
              pairs_err[("B1", "cassie", 128)], pairs_stats[("B1", "cassie", 128)][128]),
             ("flat_decimated_physics_step_elspider_air",

@@ -219,11 +219,18 @@ class RobotTrajGradSampling(RobotBatchRollout):
 
     # ---- RL warm start ----
     def setup_rl_warmstart(self, checkpoint: Optional[str] = None):
-        """Load the warm-start actor from a JAX ``.pkl`` checkpoint."""
+        """Load the warm-start actor: a reference rsl_rl ``.pt`` (bridged to
+        the engine's DOF order, ``rl/torch_compat.py``) or a ``.pkl`` of the
+        JAX runner or the port's."""
         ws = self.cfg.rl_warmstart
         path = checkpoint or ws.policy_checkpoint
-        if not path.endswith(".pkl"):
-            raise NotImplementedError("the port warm-starts from the JAX runner's .pkl checkpoints")
+        if path.endswith(".pt"):
+            from ..rl.torch_compat import load_reference_policy
+
+            self.rl_net, _, self.rl_policy = load_reference_policy(
+                path, self.num_obs, self.num_actions, tuple(ws.actor_hidden_dims), ws.activation,
+                our_joint_names=self.model.joint_names, device=self.device)
+            return self.rl_policy
         net = ActorCritic(self.num_obs, self.num_actions, tuple(ws.actor_hidden_dims),
                           tuple(ws.critic_hidden_dims), ws.activation)
         state_dict, obs_norm = load_jax_checkpoint(path)

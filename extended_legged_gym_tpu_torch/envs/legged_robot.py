@@ -25,7 +25,10 @@ assumes mostly vertical normals.  The port chooses the same scenes by the
 same predicate at construction and steps them with
 ``physics/engine.EngineEnvStep``: each substep's torques computed here (P,
 V, T or the actuator network), then one plain ABA step
-(``EngineEnvStep.engine_substeps`` counts them).  The kernel routes never
+(``EngineEnvStep.engine_substeps`` counts them).  A model with a prismatic
+joint takes the same route on any terrain: the kernel has no prismatic
+branch (nor has the JAX package's Pallas body, through which the JAX env
+still sends such a model on a TPU).  The kernel routes never
 give way to it: a kernel that fails to build or launch raises.  The
 gradient and iLQR polish ask for the same route on any scene with
 ``differentiable=True``, since autograd and forward-mode derivatives flow
@@ -91,11 +94,21 @@ Semantics kept from the JAX env, reference quirks included:
 
 The env draws from its own ``torch.Generator``; each kind of draw in a step
 has its own method (``_draw_push_vel``, ``_draw_obs_noise``,
-``_draw_random_levels``, ``_draw_spawn_offset``, ``_draw_stones``), so a
-test can inject the JAX env's draws.
+``_draw_random_levels``, ``_draw_spawn_offset``, ``_draw_stones``,
+``_draw_commands``), so a test can inject the JAX env's draws.
 
-Not ported yet (the constructor raises): heading commands, command
-curriculum.
+Command options:
+* ``commands.heading_command``: a resample draws a heading into column 3 in
+  place of the yaw rate, and every step sets column 2 to the yaw-rate P law
+  ``clip(0.5 * wrap_to_pi(heading_cmd - heading), -1, 1)`` of the base's
+  heading, after the resample (an env that resets keeps the zero its new
+  commands carry in column 2 until its next step);
+* ``commands.curriculum``: at a step whose ``common_step`` is a multiple of
+  ``max_episode_length`` and in which some env resets, if the resetting
+  envs' ``tracking_lin_vel`` episode sums average more than 0.8 of the
+  term's scale per step, the lin-vel-x range (``EnvState.
+  command_lin_vel_x_range``) widens by 0.5 each way, up to
+  ``max_curriculum``; the resets draw from the new range.
 """
 from __future__ import annotations
 
@@ -124,7 +137,7 @@ from ..terrain.heightfield import flat_terrain, sample_height
 from ..terrain.mesh import TerrainObj
 from ..utils.config import class_to_dict
 from ..utils.device import resolve_device
-from ..utils.math import quat_apply_yaw, quat_rotate_inverse
+from ..utils.math import quat_apply_yaw, quat_rotate, quat_rotate_inverse, wrap_to_pi
 from ..utils.tree import tree_map
 from .legged_robot_config import LeggedRobotCfg
 
@@ -171,6 +184,7 @@ class EnvState:
     base_ang_acc: Optional[torch.Tensor] = None      # [B, 3]
     last_root_vel: Optional[torch.Tensor] = None     # [B, 6]
     stones: Optional[StoneState] = None              # [B, M] passive stones
+    command_lin_vel_x_range: Optional[torch.Tensor] = None  # [2] (commands.curriculum)
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -294,7 +308,7 @@ class LeggedRobot:
 
         rng = cfg.commands.ranges
         self.command_ranges = {k: tuple(float(x) for x in getattr(rng, k))
-                               for k in ("lin_vel_x", "lin_vel_y", "ang_vel_yaw")}
+                               for k in ("lin_vel_x", "lin_vel_y", "ang_vel_yaw", "heading")}
         self.resampling_interval = int(np.clip(cfg.commands.resampling_time / self.dt, 1,
                                                np.iinfo(np.int32).max))
         self.push_interval = max(1, int(cfg.domain_rand.push_interval_s / self.dt))
@@ -304,12 +318,12 @@ class LeggedRobot:
         self.actuator_net = (ActuatorNetLSTM.from_json(cfg.control.actuator_net_file, self.device)
                              if cfg.control.use_actuator_network and cfg.control.actuator_net_file
                              else None)
-        # a ceiling or mesh contacts: the plain ABA engine, one call per
-        # substep; P and T control: torques and substeps fused in one launch
-        # per control step; V control and the actuator network: one launch
-        # per substep with the torques passed in
+        # a ceiling, mesh contacts or a prismatic joint: the plain ABA
+        # engine, one call per substep; P and T control: torques and
+        # substeps fused in one launch per control step; V control and the
+        # actuator network: one launch per substep with the torques passed in
         self.decimated_step = self.substep = self.engine_step = None
-        if self.terrain.has_ceiling or self.terrain.contact_trimesh:
+        if self.terrain.has_ceiling or self.terrain.contact_trimesh or model.has_prismatic:
             self.engine_step = EngineEnvStep(model, self.sim_params, self.terrain)
         elif cfg.control.control_type == "V" or self.actuator_net is not None:
             self.substep = (make_env_step(model, self.sim_params, self.terrain.height00,
@@ -344,8 +358,6 @@ class LeggedRobot:
             f"terrain.mesh_type {tc.mesh_type!r}": tc.mesh_type not in (
                 "plane", "none", "heightfield", "trimesh", "confined_trimesh",
                 "confined_heightfield", "obj"),
-            "commands.heading_command": cfg.commands.heading_command,
-            "commands.curriculum": cfg.commands.curriculum,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -467,6 +479,16 @@ class LeggedRobot:
         resets)."""
         return draw_stones(self.num_envs, self.obstacle_cfg, self.generator, self.device)
 
+    def _draw_commands(self, lin_vel_x_range) -> torch.Tensor:
+        """Command draws [B, 3]: lin vel x in ``lin_vel_x_range``, lin vel y,
+        and the heading (``heading_command``) or the yaw rate (drawn for all
+        envs, used where a command is resampled)."""
+        B, cr = self.num_envs, self.command_ranges
+        third = cr["heading"] if self.cfg.commands.heading_command else cr["ang_vel_yaw"]
+        return torch.stack([self._uniform((B,), lin_vel_x_range[0], lin_vel_x_range[1]),
+                            self._uniform((B,), *cr["lin_vel_y"]), self._uniform((B,), *third)],
+                           dim=1)
+
     def _draw_obs_noise(self, shape) -> torch.Tensor:
         """Uniform noise in [-1, 1) of ``shape``, scaled by ``noise_scale_vec``
         by the caller."""
@@ -487,7 +509,9 @@ class LeggedRobot:
         env_origins = self._compute_env_origins(levels, types)
         env_params = self._draw_env_params()
         phys = self._sample_init_phys(env_origins)
-        commands = self._sample_commands(torch.zeros(B, 4, device=dev), all_envs)
+        lin_range = (torch.tensor(self.command_ranges["lin_vel_x"], device=dev)
+                     if self.cfg.commands.curriculum else None)
+        commands = self._sample_commands(torch.zeros(B, 4, device=dev), all_envs, lin_range)
         nf, ng = self.num_feet, self.model.ng
         z = lambda *s: torch.zeros(*s, device=dev)
         state = EnvState(
@@ -514,7 +538,8 @@ class LeggedRobot:
                              if self.actuator_net is not None else None),
             privileged_obs=z(B, self.num_privileged_obs) if self.num_privileged_obs else None,
             stones=(stones_from_draws(self._draw_stones(), phys.base_pos, self.obstacle_cfg)
-                    if self.obstacle_cfg is not None else None))
+                    if self.obstacle_cfg is not None else None),
+            command_lin_vel_x_range=lin_range)
         state = self._refresh_derived(state)
         return state.replace(obs=self._compute_observations(state))
 
@@ -536,13 +561,15 @@ class LeggedRobot:
                          base_ang_vel=ang_vel, joint_vel=torch.zeros(B, self.num_dof, device=self.device),
                          contact_anchor=anchor)
 
-    def _sample_commands(self, commands, mask):
-        """Resample commands for masked envs."""
-        B, cr = self.num_envs, self.command_ranges
+    def _sample_commands(self, commands, mask, lin_vel_x_range=None):
+        """Resample commands for masked envs, lin vel x in
+        ``lin_vel_x_range`` (the command curriculum's; by default the
+        config's)."""
+        draws = self._draw_commands(self.command_ranges["lin_vel_x"] if lin_vel_x_range is None
+                                    else lin_vel_x_range)
         new = torch.zeros_like(commands)
-        new[:, 0] = self._uniform((B,), *cr["lin_vel_x"])
-        new[:, 1] = self._uniform((B,), *cr["lin_vel_y"])
-        new[:, 2] = self._uniform((B,), *cr["ang_vel_yaw"])
+        new[:, :2] = draws[:, :2]
+        new[:, 3 if self.cfg.commands.heading_command else 2] = draws[:, 2]
         small = torch.linalg.norm(new[:, :2], dim=1) > 0.2
         new[:, :2] *= small[:, None]
         return torch.where(mask[:, None], new, commands)
@@ -660,7 +687,16 @@ class LeggedRobot:
         state = state.replace(episode_length=state.episode_length + 1,
                               common_step=state.common_step + 1)
         resample = (state.episode_length % self.resampling_interval) == 0
-        state = state.replace(commands=self._sample_commands(state.commands, resample))
+        commands = self._sample_commands(state.commands, resample, state.command_lin_vel_x_range)
+        if self.cfg.commands.heading_command:
+            fwd = quat_rotate(state.phys.base_quat,
+                              torch.tensor([1.0, 0.0, 0.0], device=self.device).expand(
+                                  self.num_envs, 3))
+            heading = torch.atan2(fwd[:, 1], fwd[:, 0])
+            commands = torch.cat([commands[:, :2], torch.clamp(
+                0.5 * wrap_to_pi(commands[:, 3] - heading), -1.0, 1.0)[:, None], commands[:, 3:]],
+                dim=1)
+        state = state.replace(commands=commands)
         if self.cfg.domain_rand.push_robots:
             push_now = (state.common_step % self.push_interval) == 0
             lin = state.phys.base_lin_vel
@@ -719,6 +755,22 @@ class LeggedRobot:
                           new.clamp(min=0))
         return torch.where(mask, new, levels)
 
+    def _widen_lin_vel_x(self, state: EnvState, mask: torch.Tensor) -> torch.Tensor:
+        """The command curriculum's lin-vel-x range after the resets of
+        ``mask``: widened by 0.5 each way (up to ``max_curriculum``) where
+        the resetting envs tracked well, at the reference's timing."""
+        lin_range, cc = state.command_lin_vel_x_range, self.cfg.commands
+        scale = self.reward_scale_table[state.reward_stage,
+                                        self.reward_names.index("tracking_lin_vel")]
+        fmask = mask.to(lin_range.dtype)
+        mean_rew = ((state.episode_sums["tracking_lin_vel"] * fmask).sum()
+                    / fmask.sum().clamp(min=1.0) / self.max_episode_length)
+        widened = torch.stack([torch.clamp(lin_range[0] - 0.5, -cc.max_curriculum, 0.0),
+                               torch.clamp(lin_range[1] + 0.5, 0.0, cc.max_curriculum)])
+        do = ((mean_rew > 0.8 * scale) & (state.common_step % self.max_episode_length == 0)
+              & mask.any())
+        return torch.where(do, widened, lin_range)
+
     def _reset_envs(self, state: EnvState, mask: torch.Tensor) -> EnvState:
         """Re-draw root/dof states and commands where ``mask`` is set, on the
         origins of the promoted levels under the terrain curriculum."""
@@ -727,8 +779,11 @@ class LeggedRobot:
         if self.custom_origins and tc.curriculum and not tc.freeze_terrain_levels:
             levels = self._promote_levels(state, mask)
             origins = self._compute_env_origins(levels, state.terrain_types)
+        lin_range = state.command_lin_vel_x_range
+        if self.cfg.commands.curriculum and "tracking_lin_vel" in self.reward_names:
+            lin_range = self._widen_lin_vel_x(state, mask)
         phys = _where(mask, self._sample_init_phys(origins), state.phys)
-        commands = self._sample_commands(state.commands, mask)
+        commands = self._sample_commands(state.commands, mask, lin_range)
         fmask = mask.to(torch.float32)
         zero = lambda x: torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), torch.zeros_like(x), x)
         hidden = state.actuator_hidden
@@ -748,7 +803,7 @@ class LeggedRobot:
         return state.replace(
             phys=phys, commands=commands, episode_metrics=em, actuator_hidden=hidden,
             stones=stones, terrain_levels=levels, env_origins=origins,
-            episode_return=state.episode_return * (1.0 - fmask),
+            command_lin_vel_x_range=lin_range, episode_return=state.episode_return * (1.0 - fmask),
             episode_length=torch.where(mask, torch.zeros_like(state.episode_length), state.episode_length),
             last_actions=zero(state.last_actions), last_dof_vel=zero(state.last_dof_vel),
             feet_air_time=zero(state.feet_air_time), feet_contact_time=zero(state.feet_contact_time),

@@ -72,6 +72,7 @@ class CommandRangesCfg:
 @configclass
 class CommandsCfg:
     curriculum: bool = False
+    max_curriculum: float = 1.0
     num_commands: int = 4
     resampling_time: float = 10.0
     heading_command: bool = False

@@ -12,7 +12,9 @@ contact damping: each active contact's spatial damper
 articulated inertia before the backward sweep, and the explicit force
 ``f_el − D v_point`` to its bias force.  Gravity is applied as explicit
 per-body forces (the base-acceleration trick would let the implicit dampers
-feel a spurious ``dt·D·g``).  Revolute joints only.  On a fixed base
+feel a spurious ``dt·D·g``).  Revolute and prismatic joints (a prismatic
+joint keeps its origin's rotation and slides the child's origin along the
+axis; its motion subspace is linear).  On a fixed base
 (``model.fix_base``) the base acceleration is zero and the 6x6 base solve is
 skipped; the base's velocities are integrated unchanged (the env zeroes them
 at reset).
@@ -88,8 +90,6 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
                      env_params: EnvPhysParams):
     """One semi-implicit Euler step of B envs: ``(new_state, StepReport)``,
     in the floating-point type of ``state``."""
-    if any(t != "revolute" for t in model.joint_types):
-        raise NotImplementedError("the port's ABA step takes revolute-joint robots")
     dev, dt, ft = state.base_pos.device, sp.dt, state.base_pos.dtype
     T = model.torch(dev, ft)
     nb, nj = model.nb, model.nj
@@ -100,7 +100,7 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     goff = T["geom_offset"]
 
     # ---------------- pass 1: kinematics + velocities ----------------
-    R_w, p_w, XE, S, v, c_bias = [None] * nb, [None] * nb, [None] * nb, [None] * nb, [None] * nb, [None] * nb
+    R_w, p_w, XE, Xr, S, v, c_bias = ([None] * nb for _ in range(7))
     R0 = quat_to_matrix(state.base_quat)
     R_w[0], p_w[0] = R0, state.base_pos
     w_b = _mv(R0.transpose(-1, -2), state.base_ang_vel)
@@ -109,10 +109,16 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     zeros3 = torch.zeros(3, dtype=ft, device=dev)
     for i in range(1, nb):
         par = model.parent[i]
-        r = T["joint_origin_pos"][i]
-        Ej = T["joint_origin_rot"][i] @ _joint_rot(T["joint_axis"][i], state.joint_pos[:, i - 1])
-        S[i] = torch.cat([T["joint_axis"][i], zeros3])
-        XE[i] = Ej.transpose(-1, -2)
+        axis, th = T["joint_axis"][i], state.joint_pos[:, i - 1]
+        if model.joint_types[i - 1] == "prismatic":
+            Ej = T["joint_origin_rot"][i].expand(B, 3, 3)
+            r = T["joint_origin_pos"][i] + (T["joint_origin_rot"][i] @ axis) * th[:, None]
+            S[i] = torch.cat([zeros3, axis])
+        else:
+            Ej = T["joint_origin_rot"][i] @ _joint_rot(axis, th)
+            r = T["joint_origin_pos"][i]
+            S[i] = torch.cat([axis, zeros3])
+        XE[i], Xr[i] = Ej.transpose(-1, -2), r
         R_w[i] = R_w[par] @ Ej
         p_w[i] = p_w[par] + _mv(R_w[par], r.expand(B, 3))
         vJ = S[i] * state.joint_vel[:, i - 1, None]
@@ -155,8 +161,7 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     # ---------------- backward sweep ----------------
     U, d_inv, u = [None] * nb, [None] * nb, [None] * nb
     for i in range(nb - 1, 0, -1):
-        par = model.parent[i]
-        r = T["joint_origin_pos"][i]
+        par, r = model.parent[i], Xr[i]
         U[i] = _mv(IA[i], S[i].expand(B, 6))
         d_inv[i] = 1.0 / (U[i] @ S[i] + T["armature"][i - 1] + dt * sp.joint_damping)
         u[i] = tau[:, i - 1] - pA[i] @ S[i]
@@ -174,7 +179,7 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
         base_acc = torch.cat([_mv(R0, a_cl), _mv(R0, a0[:, :3])], -1)
     a, qdd = [a0] + [None] * (nb - 1), []
     for i in range(1, nb):
-        a_i = _xmot(XE[i], T["joint_origin_pos"][i], a[model.parent[i]]) + c_bias[i]
+        a_i = _xmot(XE[i], Xr[i], a[model.parent[i]]) + c_bias[i]
         qdd_i = (u[i] - (U[i] * a_i).sum(-1)) * d_inv[i]
         a[i] = a_i + S[i] * qdd_i[:, None]
         qdd.append(qdd_i)

@@ -11,9 +11,10 @@ formulation of the CRBA engine (``physics/engine.py::physics_step`` with
 
 Generalized velocity layout ``u = [v_base_world(3), ω_base_world(3), θ̇(nj)]``.
 Every function takes and returns ``[B, ...]`` tensors; the model's tables come
-from :meth:`RobotModel.torch` in the state's device and float type.  Revolute
-joints only (every robot of the repo; the JAX package also takes prismatic
-ones from URDFs, which the port does not read).
+from :meth:`RobotModel.torch` in the state's device and float type.  Joints
+are revolute or prismatic (a prismatic joint keeps its frame's rotation and
+slides the child's origin along the world axis; its Jacobian column is the
+axis itself, and it adds no angular velocity).
 """
 from __future__ import annotations
 
@@ -54,8 +55,6 @@ def forward_kinematics(model: RobotModel, base_pos, base_quat, joint_pos, base_l
                        base_ang_vel, joint_vel) -> Kinematics:
     """Positions, velocities and velocity-product (bias) accelerations of
     every body, walking the tree from the base."""
-    if any(t != "revolute" for t in model.joint_types):
-        raise NotImplementedError("the port's dynamics take revolute-joint robots")
     nb = model.nb
     B, ft, dev = base_pos.shape[0], base_pos.dtype, base_pos.device
     T = model.torch(dev, ft)
@@ -73,7 +72,16 @@ def forward_kinematics(model: RobotModel, base_pos, base_quat, joint_pos, base_l
         a_w = _mv(R_joint, T["joint_axis"][i].expand(B, 3))
         axis_w.append(a_w)
         anchor_w.append(anchor)
-        thd = joint_vel[:, i - 1, None]
+        th, thd = joint_pos[:, i - 1, None], joint_vel[:, i - 1, None]
+        if model.joint_types[i - 1] == "prismatic":
+            # the origin slides along the axis: a point moving in the parent
+            p[i] = anchor + th * a_w
+            r = p[i] - pp
+            R[i], w[i], al[i] = R_joint, wp, alp
+            v[i] = vp + cross(wp, r) + thd * a_w
+            ac[i] = (acp + cross(alp, r) + cross(wp, cross(wp, r))
+                     + 2.0 * cross(wp, thd * a_w))
+            continue
         r = anchor - pp
         # the anchor is a material point of the parent: its velocity and acceleration
         R[i] = R_joint @ _joint_rot(T["joint_axis"][i], joint_pos[:, i - 1])
@@ -96,6 +104,11 @@ def forward_kinematics(model: RobotModel, base_pos, base_quat, joint_pos, base_l
                       omega, v_origin, alpha_bias, a_com_bias)
 
 
+def _prismatic_mask(model: RobotModel, device) -> torch.Tensor:
+    """[nj] bool, true at the prismatic joints."""
+    return torch.tensor([t == "prismatic" for t in model.joint_types], device=device)
+
+
 def point_jacobian(model: RobotModel, kin: Kinematics, body_idx, points_w: torch.Tensor) -> torch.Tensor:
     """Point Jacobians ``[B, P, 3, nv]`` (v_point = J u) of points ``points_w``
     [B, P, 3] attached to bodies ``body_idx`` [P]: the ancestor mask selects
@@ -110,6 +123,9 @@ def point_jacobian(model: RobotModel, kin: Kinematics, body_idx, points_w: torch
     if model.nj:
         rel = points_w[:, :, None, :] - kin.anchor_w[:, None, :, :]      # [B, P, nj, 3]
         jc = cross(kin.axis_w[:, None, :, :], rel)
+        if model.has_prismatic:
+            pris = _prismatic_mask(model, dev)[:, None]
+            jc = torch.where(pris, kin.axis_w[:, None, :, :].expand_as(jc), jc)
         anc = T["ancestor_mask"][body_idx]                               # [P, nj]
         cols.append((jc * anc[None, :, :, None]).transpose(-1, -2))
     return torch.cat(cols, -1)
@@ -124,6 +140,8 @@ def body_jacobians(model: RobotModel, kin: Kinematics) -> Tuple[torch.Tensor, to
     cols = [torch.zeros(B, nb, 3, 3, dtype=ft, device=dev), eye]
     if model.nj:
         ax = kin.axis_w[:, None, :, :].expand(B, nb, model.nj, 3)
+        if model.has_prismatic:
+            ax = ax * ~_prismatic_mask(model, dev)[:, None]
         anc = model.torch(dev, ft)["ancestor_mask"]
         cols.append((ax * anc[None, :, :, None]).transpose(-1, -2))
     return Jv, torch.cat(cols, -1)

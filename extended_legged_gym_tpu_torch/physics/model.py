@@ -7,9 +7,9 @@ tensor copies on a device, cached per device.
 
 Conventions (as in the JAX package):
 * bodies are topologically sorted; body 0 is the floating base;
-* body ``i > 0`` hangs from ``parent[i]`` by a revolute joint with axis
-  ``joint_axis[i]`` in the child frame; ``joint_origin_*`` place the joint
-  frame in the parent frame;
+* body ``i > 0`` hangs from ``parent[i]`` by a revolute (or prismatic,
+  ``joint_types``) joint with axis ``joint_axis[i]`` in the child frame;
+  ``joint_origin_*`` place the joint frame in the parent frame;
 * ``q = [pos(3), quat(4, xyzw), θ(nj)]``, ``qd = [v_world(3), ω_world(3), θ̇(nj)]``;
 * collision geometry is a set of spheres attached to bodies.
 """
@@ -68,6 +68,10 @@ class RobotModel:
     @property
     def ng(self) -> int:
         return int(self.geom_radius.shape[0])
+
+    @property
+    def has_prismatic(self) -> bool:
+        return "prismatic" in self.joint_types
 
     @property
     def nv(self) -> int:

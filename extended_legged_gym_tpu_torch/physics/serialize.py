@@ -1,6 +1,7 @@
-"""RobotModel from the committed JSON morphologies (port of
-``physics/serialize.py``).  The port reads the JSON files of the JAX package
-in place (``extended_legged_gym_tpu/robots/data/*.json``)."""
+"""RobotModel <-> JSON (port of ``physics/serialize.py``).  The port reads
+the JSON files of the JAX package in place
+(``extended_legged_gym_tpu/robots/data/*.json``); ``save_model`` writes the
+same layout (``scripts/extract_robot_models.py``)."""
 from __future__ import annotations
 
 import json
@@ -20,6 +21,16 @@ _STATIC_FIELDS = ["nb", "nj", "body_names", "joint_names", "parent", "joint_type
                   "fix_base", "geom_links", "foot_names"]
 
 
+def model_to_json(model: RobotModel) -> str:
+    d = {}
+    for f in _STATIC_FIELDS:
+        v = getattr(model, f)
+        d[f] = list(v) if isinstance(v, tuple) else v
+    for f in _ARRAY_FIELDS:
+        d[f] = np.asarray(getattr(model, f)).tolist()
+    return json.dumps(d)
+
+
 def model_from_json(text: str) -> RobotModel:
     d = json.loads(text)
     kwargs = {}
@@ -37,3 +48,8 @@ def model_from_json(text: str) -> RobotModel:
 def load_model(path: str) -> RobotModel:
     with open(path) as f:
         return model_from_json(f.read())
+
+
+def save_model(model: RobotModel, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(model_to_json(model))

@@ -35,8 +35,9 @@ module (target and predictor trees, normalizers, step, Adam state) under
 checkpoints and the JAX package's (parameters and learning rate; a JAX
 checkpoint's optax state is not carried over, so Adam restarts).
 
-Not ported (raise ``NotImplementedError``): ``warmstart_from_reference`` and
-``export_policy``.
+``warmstart_from_reference`` starts the MLP policy from a reference rsl_rl
+``.pt`` (bridged to the engine's DOF order in weight space, Adam restarted);
+``export_policy`` writes the deployment files (``utils/export.py``).
 """
 from __future__ import annotations
 
@@ -332,7 +333,35 @@ class OnPolicyRunner:
         return self.network.initialize_carries((batch_size or self.env.num_envs,), self.device)
 
     def warmstart_from_reference(self, pt_path: str):
-        raise NotImplementedError("not ported yet: warm start from a reference .pt checkpoint")
+        """Start the policy from a reference rsl_rl ``.pt`` checkpoint,
+        re-expressed in the engine's DOF order in weight space
+        (``rl/torch_compat.permute_params_to_our_dof_order``), with a fresh
+        Adam state."""
+        from .torch_compat import (load_rsl_rl_checkpoint, permute_params_to_our_dof_order,
+                                   rsl_rl_state_dict)
 
-    def export_policy(self, path: str):
-        raise NotImplementedError("not ported yet: policy export")
+        if self.recurrent:
+            raise ValueError("a reference .pt checkpoint holds an MLP policy")
+        sd, _ = load_rsl_rl_checkpoint(pt_path)
+        state = permute_params_to_our_dof_order(rsl_rl_state_dict(sd, self.network),
+                                                self.env.model.joint_names)
+        self.network.load_state_dict({k: v.to(self.device) for k, v in state.items()})
+        self.optimizer = Adam(self.network.parameters(), self.cfg.algorithm.max_grad_norm)
+        print(f"Warm-started PPO params from reference checkpoint: {pt_path}", flush=True)
+
+    def export_policy(self, path: str) -> List[str]:
+        """Write the deployment files into ``path`` and return them: the MLP
+        policy as TorchScript (``policy_1.pt``) and as a ``torch.export``
+        program (``policy.pt2``), a recurrent one as TorchScript with its
+        memory inside (``policy_lstm_1.pt``); the normalizer folded in."""
+        from ..utils.export import (export_policy_as_jit, export_policy_pt2,
+                                    export_recurrent_policy_as_jit, mlp_policy_module)
+
+        act = self.cfg.policy.activation
+        if self.recurrent:
+            return [export_recurrent_policy_as_jit(self.network, path, activation=act,
+                                                   normalizer=self.obs_norm)]
+        module = mlp_policy_module(self.network.actor, act, self.obs_norm)
+        return [export_policy_as_jit(self.network.actor, path, activation=act,
+                                     normalizer=self.obs_norm),
+                export_policy_pt2(module, torch.zeros(2, self.env.num_obs), path)]

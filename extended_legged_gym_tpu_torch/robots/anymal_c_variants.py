@@ -70,8 +70,8 @@ class PoseAnymal(LeggedRobot):
         return (self._uniform((B,), 0.35, 0.6), self._uniform((B,), -0.3, 0.3),
                 self._uniform((B,), -0.3, 0.3))
 
-    def _sample_commands(self, commands, mask):
-        base = super()._sample_commands(commands[:, :4], mask)
+    def _sample_commands(self, commands, mask, lin_vel_x_range=None):
+        base = super()._sample_commands(commands[:, :4], mask, lin_vel_x_range)
         h, roll, pitch = self._draw_pose_commands()
         new = torch.cat([base, torch.stack([h, roll, pitch, torch.zeros_like(h)], dim=-1)], dim=-1)
         if commands.shape[-1] != 8:

@@ -52,7 +52,7 @@ class Franka(RobotBatchRollout):
         hi = torch.tensor(EE_TARGET_HI, device=self.device)
         return self._uniform((self.num_envs, 3), lo, hi)
 
-    def _sample_commands(self, commands, mask):
+    def _sample_commands(self, commands, mask, lin_vel_x_range=None):
         """Pose targets for the masked envs (in place of the velocity
         commands of the locomotion base class)."""
         quat = torch.tensor(EE_TARGET_QUAT, device=self.device).expand(self.num_envs, 4)

@@ -10,8 +10,10 @@ of ``scripts/evidence_artifacts.py``).
   ``cosine_decay_schedule(1e-3, decay_steps=2 * iters, alpha=0.1)`` stepped
   per optimizer update.  Then the student alone, clean env (no noise,
   randomization or pushes), 0.5 m/s, 100 warm-up + 300 recorded steps:
-  tracking and falls (resets).  The JAX script's default teacher, the
-  reference's ``.pt`` through the DOF bridge, is not ported.
+  tracking and falls (resets).  Without ``--teacher-ckpt`` the teacher is
+  the JAX script's default, the reference's ``.pt`` (``REF_CKPT``, relative
+  to the working directory) through the DOF bridge; it fails where that
+  file is absent.
 * ``estimator``: the ``ESTIMATOR_r4`` recipe: ``anymal_c_flat`` with the
   depth camera (48 x 24 -> 32 x 16) and 32 spherical rays (8 x 4, 5 m),
   random actions, the supervised loss curve.
@@ -37,11 +39,8 @@ import time
 
 import torch
 
+from ..rl.torch_compat import REF_CKPT
 from .eval_policy import card_name
-
-# the JAX script's default teacher: the reference repository's own checkpoint,
-# which this repository does not hold
-REF_CKPT = "legged_gym/ckpt/anymal_c/plane_walk_200.pt"
 
 
 def _chunked_curve(learn, total: int, chunk: int, keys):
@@ -111,27 +110,31 @@ def student_eval(policy, envs: int, device, cmd_mps: float = 0.5, warmup: int = 
 def distill_runner(teacher_ckpt: str, envs: int, iters: int, device="cuda"):
     """The ``DISTILL_NATIVE_r5`` recipe's runner for ``iters`` iterations on
     ``anymal_c_flat`` at ``envs`` envs, the teacher ``teacher_ckpt``'s
-    deterministic policy."""
+    deterministic policy (a PPO ``.pkl``, or a reference ``.pt`` through the
+    DOF bridge)."""
     from ..envs.legged_robot import LeggedRobot
     from ..rl.distillation import cosine_decay_schedule
     from ..rl.distillation_runner import DistillationRunner
     from ..rl.runner import OnPolicyRunner
+    from ..rl.torch_compat import load_reference_policy
     from ..robots.anymal_c import anymal_c_flat_cfg, anymal_c_ppo_cfg
     from ..utils.device import resolve_device
 
-    if not teacher_ckpt:
-        raise NotImplementedError(
-            f"not ported: the reference .pt teacher ({REF_CKPT}, through the DOF bridge); "
-            "pass an engine-native teacher with --teacher-ckpt")
     dev = resolve_device(device)
     cfg = anymal_c_flat_cfg()
     cfg.env.num_envs = envs
     cfg.noise.add_noise = False
     env = LeggedRobot(cfg, device=dev)
-    teacher_runner = OnPolicyRunner(env, anymal_c_ppo_cfg())
-    teacher_runner.load(teacher_ckpt)
+    if teacher_ckpt.endswith(".pt"):
+        # the reference's teacher, bridged to the engine's DOF order
+        teacher = load_reference_policy(teacher_ckpt, env.num_obs, env.num_actions,
+                                        our_joint_names=env.model.joint_names, device=dev)[2]
+    else:
+        teacher_runner = OnPolicyRunner(env, anymal_c_ppo_cfg())
+        teacher_runner.load(teacher_ckpt)
+        teacher = teacher_runner.get_inference_policy()
     lr = cosine_decay_schedule(1e-3, decay_steps=max(1, iters * 2), alpha=0.1)
-    return DistillationRunner(env, teacher_runner.get_inference_policy(),
+    return DistillationRunner(env, teacher,
                               student_hidden_dims=(256, 256, 128), num_steps_per_env=24,
                               num_learning_epochs=2, learning_rate=lr)
 
@@ -219,7 +222,9 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=None,
                     help="iterations (distill 1500, estimator 300)")
     ap.add_argument("--envs", type=int, default=None, help="envs (distill 256, estimator 64)")
-    ap.add_argument("--teacher-ckpt", default=None, help="engine-native teacher .pkl (distill)")
+    ap.add_argument("--teacher-ckpt", default=REF_CKPT,
+                    help="teacher: an engine-native .pkl, or the reference .pt (default) through "
+                         "the DOF bridge (distill)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reference", default=None, help="the JAX artifact to set beside")
     ap.add_argument("--out", default=None)

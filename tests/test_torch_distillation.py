@@ -265,8 +265,8 @@ def test_student_policy_and_learn_on_cpu(teachers):
 
 def test_evidence_script_on_cpu(tmp_path):
     """``estimator`` at 4 envs for 2 iterations writes the curve with the
-    JAX artifact beside it; ``distill`` without ``--teacher-ckpt`` refuses the
-    reference's .pt teacher."""
+    JAX artifact beside it; ``distill`` without ``--teacher-ckpt`` takes the
+    reference's .pt teacher, and fails naming it where the file is absent."""
     from extended_legged_gym_tpu_torch.scripts import evidence_artifacts
 
     out = evidence_artifacts.main(["estimator", "--iters", "2", "--envs", "4", "--device", "cpu",
@@ -274,5 +274,5 @@ def test_evidence_script_on_cpu(tmp_path):
                                    "--out", str(tmp_path / "est.json")])
     assert [c[0] for c in out["curve"]] == [1, 2] and np.isfinite(out["loss_final"])
     assert out["reference"]["loss_first"] == 0.347752 and out["card"] == "cpu"
-    with pytest.raises(NotImplementedError, match="plane_walk_200.pt"):
+    with pytest.raises(FileNotFoundError, match="plane_walk_200.pt"):
         evidence_artifacts.main(["distill", "--iters", "1", "--envs", "2", "--device", "cpu"])

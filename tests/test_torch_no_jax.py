@@ -22,7 +22,11 @@ import, and each of the 11 tasks they add steps (the confined arenas on the
 engine route, 2 x 2 grids of 4 m); the iLQR, pose-adapt and gait-scheduler
 modules import, a differentiable rollout and a one-iteration iLQR polish
 run on the MPC task, the ElSpider MPC task's gait-scheduler rewards and an
-el_mini_base_pose_ctrl env step, the registry holding all 59 tasks."""
+el_mini_base_pose_ctrl env step, the registry holding all 59 tasks; the URDF,
+reference-checkpoint, export, plot-logger, replay and torch.distributed
+modules and the play, weak-scaling, parity and model-extraction scripts
+import, the process joins no group where there is none to join, and the
+flat runner exports its TorchScript and torch.export files."""
 import os
 import subprocess
 import sys
@@ -78,7 +82,11 @@ SCRIPT = textwrap.dedent(f"""
               "utils.random_walker", "utils.raibert_planner", "perception.trimesh",
               "perception.sdf", "terrain.confined", "terrain.mesh", "terrain.obstacles",
               "terrain.dynamic_obstacles", "envs.percept", "envs.navigation", "envs.plan_grad",
-              "trajopt.riccati", "envs.pose_adapt", "utils.gait_scheduler"):
+              "trajopt.riccati", "envs.pose_adapt", "utils.gait_scheduler", "physics.urdf",
+              "rl.torch_compat", "utils.export", "utils.plot_logger", "utils.replay",
+              "parallel", "parallel.distributed", "parallel.mesh", "scripts.play",
+              "scripts.weak_scaling", "scripts.eval_parity", "scripts.diag_parity",
+              "scripts.compare_reference_reward", "scripts.extract_robot_models"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
@@ -139,6 +147,15 @@ SCRIPT = textwrap.dedent(f"""
         s = env.step(env.reset_all(seed=0), torch.zeros(2, env.num_actions))
         assert bool(torch.isfinite(s.obs).all()) and bool(torch.isfinite(s.rew).all()), task
     assert len(task_registry.task_classes) == 59
+    import tempfile
+    from extended_legged_gym_tpu_torch.parallel.distributed import init_multi_host
+    assert init_multi_host(device="cpu")["process_count"] == 1
+    env, _ = task_registry.make_env("anymal_c_flat", get_args(argv=["--num_envs", "2"]),
+                                    device="cpu")
+    runner, _ = task_registry.make_alg_runner(env, "anymal_c_flat", log_root="unused")
+    with tempfile.TemporaryDirectory() as d:
+        files = runner.export_policy(d)
+        assert [f.rsplit("/", 1)[1] for f in files] == ["policy_1.pt", "policy.pt2"]
     rough = load_policy({ROUGH_CKPT!r}, 235, 12, "cpu")(torch.zeros(1, 235))
     ray = load_policy({RAY_CKPT!r}, 267, 12, "cpu")(torch.zeros(1, 267))
     from extended_legged_gym_tpu_torch.models.networks import read_checkpoint
@@ -167,7 +184,7 @@ def test_port_imports_and_loads_checkpoint_without_jax():
     assert "actor (128, 48)" in proc.stdout and "rough actions (1, 12)" in proc.stdout
     assert "ray actions (1, 12)" in proc.stdout and "estimated rays (2, 32)" in proc.stdout
     n = int(proc.stdout.split("imported ")[1].split()[0])
-    assert n >= 74
+    assert n >= 88
 
 
 def test_chip_smoke_refuses_without_cuda():

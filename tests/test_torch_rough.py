@@ -148,13 +148,18 @@ def test_fall_resets_on_spawn_origins(envs):
     (lambda c: setattr(c.terrain, "trimesh_contacts", True), "triangle-mesh contacts"),
 ])
 def test_env_refuses_what_is_not_ported(change, match):
-    """An unknown mesh type and the command options not ported yet raise
-    NotImplementedError; triangle-mesh contacts are ported and, as in the
-    JAX package, raise ValueError on a terrain without a mesh (this
-    generated grid carries none)."""
+    """An unknown mesh type raises NotImplementedError; triangle-mesh
+    contacts are ported and, as in the JAX package, raise ValueError on a
+    terrain without a mesh (this generated grid carries none).  The command
+    options, refused until they were ported, build their env
+    (tests/test_torch_commands.py holds them to the JAX env)."""
     cfg = small_rough(anymal_c_rough_cfg())
     cfg.terrain.curriculum = True
     change(cfg)
+    if match in ("commands.curriculum", "heading_command"):
+        env = LeggedRobot(cfg, device="cpu")
+        assert env.cfg.commands.curriculum or env.cfg.commands.heading_command
+        return
     error = ValueError if match == "triangle-mesh contacts" else NotImplementedError
     with pytest.raises(error, match=match):
         LeggedRobot(cfg, device="cpu")

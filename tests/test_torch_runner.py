@@ -250,12 +250,15 @@ def test_port_loads_committed_jax_checkpoint(env):
 
 
 @pytest.mark.parametrize("what", ["recurrent", "rnd", "symmetry", "warmstart", "export"])
-def test_not_ported_raises(env, what):
-    """The entries not ported yet raise NotImplementedError; the RL
-    extensions that raised before they were ported (the recurrent policy,
-    RND, symmetry) now build their runner (tests/test_torch_recurrent.py and
-    tests/test_torch_rnd_symmetry.py hold them to the JAX package), and a
-    policy class the port lacks still raises."""
+def test_not_ported_raises(env, what, tmp_path):
+    """A policy class the port lacks raises NotImplementedError.  The entries
+    that raised before they were ported now run: the RL extensions (the
+    recurrent policy, RND, symmetry) build their runner
+    (tests/test_torch_recurrent.py and tests/test_torch_rnd_symmetry.py hold
+    them to the JAX package), the reference warm start fails only on a
+    missing file, naming it, and the export writes its files
+    (tests/test_torch_torch_compat.py and tests/test_torch_export.py hold
+    both to the JAX package)."""
     from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_symmetry_cfg
 
     tc = small(anymal_c_ppo_cfg())
@@ -271,12 +274,17 @@ def test_not_ported_raises(env, what):
         tc.algorithm.symmetry_cfg = anymal_c_symmetry_cfg()
         assert OnPolicyRunner(env, tc).symmetry is not None
         return
+    if what == "warmstart":
+        with pytest.raises(FileNotFoundError, match="policy.pt"):
+            OnPolicyRunner(env, tc).warmstart_from_reference(str(tmp_path / "policy.pt"))
+        return
+    if what == "export":
+        files = OnPolicyRunner(env, tc).export_policy(str(tmp_path / "policy"))
+        assert [os.path.basename(f) for f in files] == ["policy_1.pt", "policy.pt2"]
+        assert all(os.path.getsize(f) > 0 for f in files)
+        return
     with pytest.raises(NotImplementedError):
-        runner = OnPolicyRunner(env, tc)
-        if what == "warmstart":
-            runner.warmstart_from_reference("policy.pt")
-        if what == "export":
-            runner.export_policy("policy")
+        OnPolicyRunner(env, tc)
 
 
 def test_train_and_eval_scripts_on_cpu(tmp_path, monkeypatch):
