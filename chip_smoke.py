@@ -224,11 +224,23 @@ Phases (each prints its seconds; the run fails rather than overrun):
    commands.curriculum on at 4096 envs, 24 control steps of the committed
    flat policy: exactly 24 B1 launches, column 2 the P law of column 3 and
    the base heading (zero where an env just reset), everything finite;
-38. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+38. sim options: anymal_c_flat at OPT_ENVS envs with asset.armature
+   OPT_ARMATURE and sim.enforce_dof_vel_limits off: the wrapper's
+   velocity-limit and armature rows hold 500 and OPT_ARMATURE, B1 against
+   the plain step with the same options from joint velocities of OPT_FAST
+   rad/s (past the 20 rad/s limit, which the kernel must leave unclamped),
+   then OPT_STEPS control steps of the env with random actions (B1 exactly
+   OPT_STEPS, the others 0); the same task at OPT_ENGINE_ENVS envs with
+   sim.solver "crba", then "aba": OPT_STEPS control steps each with no
+   kernel launch, EngineEnvStep's substeps exactly OPT_STEPS x 4, the state
+   finite; then one line naming the sinks the training paths'
+   MetricsWriter wrote (the JSONL file always, TensorBoard's event file
+   where tensorboard imports);
+39. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-39. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+40. timing: the MPC solve latency at 1 env and the rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-40. the kernel line (JSON) and the result line.  B1's entry counts its
+41. the kernel line (JSON) and the result line.  B1's entry counts its
    launches on the MPC path, the flat training path, the distillation path,
    the RL-extension paths and the ANYmal-C variants' stepping; B1's entry
    on the hexapod's tables its launches on the ElSpider path and the
@@ -245,7 +257,7 @@ Phases (each prints its seconds; the run fails rather than overrun):
    elspider_air_rough_raycast's; phases 29 and 31 add each launch to the
    entry of its tables (B1 on Cassie's a new entry, its times at 128); B1's
    entry also counts phase 36's launches at 128 and 1024 and its
-   weak-scaling row's, and phase 37's; play's launches (phase 33) and the
+   weak-scaling row's, phase 37's and phase 38's; play's launches (phase 33) and the
    sweep's at 8192 (phase 36) are entries of their own, with their times at
    50 and 8192; the others carry their times
    at the training fleet's 4096.  An entry
@@ -405,6 +417,10 @@ PLAY_RUN, PLAY_B, PLAY_STEPS = "Aug21_12-38-39_r5_ft4", 50, 500
 EXPORT_ATOL = 1e-5
 SWEEP_S, SWEEP_REPS, WEAK_PER = (64, 512, 4096), 2, 16
 CMD_ENVS, CMD_STEPS = 4096, 24
+# the sim options' phase: the fleet with the armature and the velocity
+# limits off, joint velocities past the 20 rad/s limit, control steps; the
+# plain-engine solvers' envs
+OPT_ENVS, OPT_ARMATURE, OPT_FAST, OPT_STEPS, OPT_ENGINE_ENVS = 4096, 0.05, 30.0, 4, 64
 ELSPIDER_CKPT = os.path.join(ROOT, "logs/flat_elspider_air/Aug21_04-21-51_r4b/model_final.pkl")
 SEA_CKPT = os.path.join(ROOT, "logs/flat_sea_anymal_c/Aug21_07-18-55_r4_sea2/model_final.pkl")
 
@@ -659,6 +675,11 @@ def zero_launch_counts():
     pk.DecimatedEnvStep.fixed_launches = pk.EnvStep.fixed_launches = 0
 
 
+# the sinks each training path's MetricsWriter wrote, read from its run
+# directory (phase 38 prints them)
+SINKS_SEEN = set()
+
+
 def training_path(dev, task, seed, iters, envs=FLEET, check=None):
     """``iters`` iterations of PPO on ``task`` at its training recipe
     (``envs`` envs, from scratch) through the task registry and
@@ -701,6 +722,8 @@ def training_path(dev, task, seed, iters, envs=FLEET, check=None):
         counts = launch_counts()
         with open(os.path.join(runner.log_dir, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f]
+        SINKS_SEEN.add(("JSONL",) + (("TensorBoard",) if any(
+            f.startswith("events.out.tfevents") for f in os.listdir(runner.log_dir)) else ()))
         after = torch.cat([p.detach().reshape(-1) for p in net.parameters()])
         want = iters * runner.num_steps_per_env * (
             env.cfg.control.decimation if env.substep is not None else 1)
@@ -1882,7 +1905,7 @@ def new_training(dev, launches):
                           if task == "anymal_c_flat_obstacles" else None)
         robot = "elspider_air" if "elspider" in task else "anymal_c"
         launches[(route, robot)] = launches.get((route, robot), 0) + n
-        iterate, _ = ppo_iteration(task, 1, dev)
+        iterate, _, _ = ppo_iteration(task, 1, dev)
         iterate()
         times, wall, busy = profiled(iterate)
         log(f"{task}: one profiled iteration {wall:.1f} ms (collection "
@@ -2350,6 +2373,89 @@ def commands_path(dev, policy):
     return counts["B1"]
 
 
+def sim_options_path(dev, stats):
+    """Phase 38: ``sim.enforce_dof_vel_limits``, ``asset.armature`` and
+    ``sim.solver`` on the card (see the module docstring).  Records B1's
+    times at OPT_ENVS in ``stats``; returns (B1 launches, largest difference
+    from the plain step)."""
+    import numpy as np
+    import torch
+
+    from extended_legged_gym_tpu_torch.envs.legged_robot import LeggedRobot
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+    from extended_legged_gym_tpu_torch.physics import EngineEnvStep
+    from extended_legged_gym_tpu_torch.robots.anymal_c import anymal_c_flat_cfg
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing
+
+    t0 = time.perf_counter()
+    cfg = anymal_c_flat_cfg()
+    cfg.env.num_envs = OPT_ENVS
+    cfg.asset.armature, cfg.sim.enforce_dof_vel_limits = OPT_ARMATURE, False
+    env = LeggedRobot(cfg, device=dev)
+    step, nj = env.decimated_step, env.model.nj
+    vlim = step.tf_host[pk.TF_VLIM:pk.TF_VLIM + nj]
+    arm = step.tf_host[pk.TF_ARM:pk.TF_ARM + nj]
+    log(f"sim options: {OPT_ENVS} envs, armature {OPT_ARMATURE}, velocity limits off: the "
+        f"kernel's velocity-limit rows {sorted(set(vlim.tolist()))}, armature rows "
+        f"{sorted(set(arm.tolist()))} (the model's limits {sorted(set(env.model.dof_vel_limits.tolist()))})")
+    if step.rough or not (vlim == 500.0).all() or not (arm == np.float32(OPT_ARMATURE)).all():
+        fail("the sim options did not reach B1's tables")
+    st, ep, act = near_standing(env.model, OPT_ENVS, 21, dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    sign = torch.randint(0, 2, st.joint_vel.shape, device=dev, generator=gen) * 2.0 - 1.0
+    st = st.replace(joint_vel=OPT_FAST * sign)
+    err = compare_one_step("B1 sim options", step, OPT_ENVS, (st, ep, act), stats)
+    fast = step.launch(st, act, ep)[0].joint_vel.abs().max().item()
+    log(f"B1 sim options: |joint_vel| max {fast:.3g} rad/s after one control step from "
+        f"{OPT_FAST:g} (the model's limit {float(env.model.dof_vel_limits.max()):g})")
+    if not fast > float(env.model.dof_vel_limits.max()):
+        fail("B1 clamped the joint velocities with the velocity limits off")
+    with torch.no_grad():
+        state = env.reset_all(seed=0)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        for _ in range(OPT_STEPS):
+            state = env.step(state, torch.randn(OPT_ENVS, nj, device=dev, generator=gen))
+            finite &= torch.isfinite(state.obs).all() & torch.isfinite(state.rew).all()
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: (OPT_STEPS if k == "B1" else 0) for k in counts}
+    log(f"sim options env: {OPT_STEPS} control steps: launches {counts}; finite {bool(finite)}")
+    if counts != want or not bool(finite):
+        fail(f"the sim options' env launched {counts} (want {want}) or went non-finite")
+    launches = counts["B1"]
+    for solver in ("crba", "aba"):
+        cfg = anymal_c_flat_cfg()
+        cfg.env.num_envs, cfg.sim.solver = OPT_ENGINE_ENVS, solver
+        env = LeggedRobot(cfg, device=dev)
+        with torch.no_grad():
+            state = env.reset_all(seed=0)
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            n0 = EngineEnvStep.engine_substeps
+            t1 = time.perf_counter()
+            for _ in range(OPT_STEPS):
+                state = env.step(state, torch.randn(OPT_ENGINE_ENVS, nj, device=dev,
+                                                    generator=gen))
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) / OPT_STEPS * 1e3
+        counts, substeps = launch_counts(), EngineEnvStep.engine_substeps - n0
+        finite = all(bool(torch.isfinite(getattr(state.phys, k)).all())
+                     for k in ("base_pos", "base_quat", "joint_pos", "joint_vel"))
+        log(f"sim.solver {solver!r} at {OPT_ENGINE_ENVS} envs: {OPT_STEPS} control steps, "
+            f"kernel launches {counts}, engine substeps {substeps} (want "
+            f"{OPT_STEPS * cfg.control.decimation}), {ms:.1f} ms per control step, state "
+            f"finite {finite}")
+        if (any(counts.values()) or substeps != OPT_STEPS * cfg.control.decimation
+                or env.engine_step.sp.solver != solver or not finite):
+            fail(f"sim.solver {solver!r} did not run the plain engine alone, or went non-finite")
+    log("metrics sinks the training paths' MetricsWriter wrote: "
+        + "; ".join(" + ".join(s) for s in sorted(SINKS_SEEN)))
+    phase_done("sim options", t0)
+    return launches, err
+
+
 def main():
     import torch
 
@@ -2621,7 +2727,12 @@ def main():
     sweep_launches, other_sweep_launches, sweep_err = sweep_path(dev, mesh, sweep_stats)
     cmd_launches = commands_path(dev, played["runner"].get_inference_policy())
 
-    # ---------------- 38. flat evaluation ----------------
+    # ---------------- 38. sim options ----------------
+    opt_stats = {}
+    opt_launches, opt_err = sim_options_path(dev, opt_stats)
+    flat_err = max(flat_err, opt_err)
+
+    # ---------------- 39. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -2634,7 +2745,7 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 39. timing ----------------
+    # ---------------- 40. timing ----------------
     t0 = time.perf_counter()
     solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
@@ -2644,7 +2755,7 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 40. result ----------------
+    # ---------------- 41. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
@@ -2657,7 +2768,8 @@ def main():
             ("flat_decimated_physics_step",
              flat_launches + train_launches + distill_launches + ext_launches
              + fam("B1", "anymal_c") + percept_launches + new_launches[("B1", "anymal_c")]
-             + polish_launches + other_sweep_launches + cmd_launches, flat_err, flat_stats[4096]),
+             + polish_launches + other_sweep_launches + cmd_launches + opt_launches, flat_err,
+             flat_stats[4096]),
             ("flat_decimated_physics_step_play_b50", play_launches, play_err,
              play_stats[PLAY_B]),
             ("flat_decimated_physics_step_sweep_b8192", sweep_launches, sweep_err,

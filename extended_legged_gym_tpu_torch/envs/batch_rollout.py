@@ -199,8 +199,8 @@ class RobotBatchRollout(LeggedRobot):
 class RobotTrajGradSampling(RobotBatchRollout):
     """Sampling-MPC environment: batch-rollout env + trajectory optimizer."""
 
-    def __init__(self, cfg: RobotTrajGradSamplingCfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: RobotTrajGradSamplingCfg, **kw):
+        super().__init__(cfg, **kw)
         to = cfg.trajectory_opt
         if to.polish_iters > 0 and to.polish_method not in ("fd", "gradient", "ilqr"):
             raise ValueError(f"unknown polish_method {to.polish_method!r}: 'fd', 'gradient' "

@@ -34,6 +34,15 @@ gradient and iLQR polish ask for the same route on any scene with
 ``differentiable=True``, since autograd and forward-mode derivatives flow
 through the plain engine and not through a kernel.
 
+``sim.solver`` chooses as the JAX env's does: ``"pallas"`` (the default) the
+kernel routes above; ``"aba"`` or ``"crba"`` the engine route on any scene
+and device, with that solver.  ``"pallas_interpret"``, the JAX tests' Pallas
+interpreter, raises: the port's CPU always runs the kernel's plain version.
+``sim.enforce_dof_vel_limits`` (the joint velocity clamp at the model's
+limits, else at +-500 rad/s) and ``asset.armature`` (every joint's armature
+in place of the model's, where non-zero) reach every route, the kernels
+through their tables.
+
 Semantics kept from the JAX env, reference quirks included:
 * observation layout [lin vel, ang vel, projected gravity, commands, dof pos,
   dof vel, actions] with scales and clipping;
@@ -126,20 +135,20 @@ from ..perception.raycast import RayCaster
 from ..physics.contact import default_contact_params
 from ..physics.engine import (EngineEnvStep, EnvPhysParams, PhysState, StepReport,
                               default_sim_params)
-from ..physics.model import geom_indices_matching
+from ..physics.model import RobotModel, geom_indices_matching
 from ..physics.serialize import load_model
 from ..terrain.confined import TerrainConfined
 from ..terrain.dynamic_obstacles import (DynamicObstacleConfig, StoneDraws, StoneState,
                                          draw_stones, reset_stones, step_stones,
                                          stone_robot_forces, stones_from_draws)
 from ..terrain.generator import Terrain
-from ..terrain.heightfield import flat_terrain, sample_height
+from ..terrain.heightfield import TerrainData, flat_terrain, sample_height
 from ..terrain.mesh import TerrainObj
 from ..utils.config import class_to_dict
 from ..utils.device import resolve_device
 from ..utils.math import quat_apply_yaw, quat_rotate, quat_rotate_inverse, wrap_to_pi
 from ..utils.tree import tree_map
-from .legged_robot_config import LeggedRobotCfg
+from .legged_robot_config import UNREAD_ENV_FIELDS, LeggedRobotCfg, refuse_unread
 
 
 @dataclass
@@ -197,9 +206,14 @@ def _where(mask: torch.Tensor, new, old):
 
 
 class LeggedRobot:
-    """Static env object with ``reset_all`` / ``step`` over :class:`EnvState`."""
+    """Static env object with ``reset_all`` / ``step`` over :class:`EnvState`.
 
-    def __init__(self, cfg: LeggedRobotCfg, device="cuda"):
+    ``model`` and ``terrain``, where given, take the place of the ones the
+    config names (``asset.file``, ``terrain.mesh_type``), as in the JAX env;
+    an injected terrain gives the envs the plane's grid of origins."""
+
+    def __init__(self, cfg: LeggedRobotCfg, model: Optional[RobotModel] = None,
+                 terrain: Optional[TerrainData] = None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self._check_supported(cfg)
@@ -211,14 +225,20 @@ class LeggedRobot:
         self.max_episode_length_s = cfg.env.episode_length_s
         self.max_episode_length = int(np.ceil(self.max_episode_length_s / self.dt))
 
-        model = load_model(cfg.asset.file)
+        if model is None:
+            model = load_model(cfg.asset.file)
+        if cfg.asset.armature:
+            model = dataclasses.replace(model, _tensors={}, armature=np.full(
+                model.nj, cfg.asset.armature, np.float32))
         if cfg.asset.fix_base_link and not model.fix_base:
             model = dataclasses.replace(model, _tensors={}, fix_base=True)
         self.model = model
         self.num_dof = model.nj
         tc = cfg.terrain
         self.terrain_gen = None
-        if tc.mesh_type in ("heightfield", "trimesh"):
+        if terrain is not None:
+            self.terrain = terrain
+        elif tc.mesh_type in ("heightfield", "trimesh"):
             self.terrain_gen = Terrain(tc, self.num_envs, seed=cfg.seed)
             self.terrain = self.terrain_gen.to_device(tc.static_friction)
         elif tc.mesh_type in ("confined_trimesh", "confined_heightfield"):
@@ -241,7 +261,9 @@ class LeggedRobot:
             contact=default_contact_params(kp=cfg.sim.contact_kp, kd=cfg.sim.contact_kd,
                                            kt=cfg.sim.contact_kt,
                                            kt_spring=cfg.sim.contact_kt_spring),
-            joint_damping=cfg.sim.joint_damping)
+            joint_damping=cfg.sim.joint_damping,
+            solver=cfg.sim.solver,
+            enforce_dof_vel_limits=cfg.sim.enforce_dof_vel_limits)
 
         # PD gains by joint-name matching
         p_gains = np.zeros(model.nj, np.float32)
@@ -318,12 +340,14 @@ class LeggedRobot:
         self.actuator_net = (ActuatorNetLSTM.from_json(cfg.control.actuator_net_file, self.device)
                              if cfg.control.use_actuator_network and cfg.control.actuator_net_file
                              else None)
-        # a ceiling, mesh contacts or a prismatic joint: the plain ABA
-        # engine, one call per substep; P and T control: torques and
-        # substeps fused in one launch per control step; V control and the
-        # actuator network: one launch per substep with the torques passed in
+        # sim.solver "aba" or "crba", a ceiling, mesh contacts or a prismatic
+        # joint: the plain engine, one call per substep; else the kernels
+        # (sim.solver "pallas"): P and T control with torques and substeps
+        # fused in one launch per control step, V control and the actuator
+        # network one launch per substep with the torques passed in
         self.decimated_step = self.substep = self.engine_step = None
-        if self.terrain.has_ceiling or self.terrain.contact_trimesh or model.has_prismatic:
+        if (cfg.sim.solver != "pallas" or self.terrain.has_ceiling
+                or self.terrain.contact_trimesh or model.has_prismatic):
             self.engine_step = EngineEnvStep(model, self.sim_params, self.terrain)
         elif cfg.control.control_type == "V" or self.actuator_net is not None:
             self.substep = (make_env_step(model, self.sim_params, self.terrain.height00,
@@ -362,6 +386,13 @@ class LeggedRobot:
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if cfg.sim.solver == "pallas_interpret":
+            raise ValueError("sim.solver 'pallas_interpret' runs the JAX package's Pallas kernel "
+                             "in its interpreter; the port has none: on the CPU, sim.solver "
+                             "'pallas' always runs the kernel's plain version")
+        if cfg.sim.solver not in ("pallas", "aba", "crba"):
+            raise ValueError(f"unknown sim.solver {cfg.sim.solver!r}: 'pallas', 'aba' or 'crba'")
+        refuse_unread(cfg, UNREAD_ENV_FIELDS)
 
     def _init_env_origins(self):
         """Spawn origins: on a generated terrain, (level, type) cells, the

@@ -1,18 +1,48 @@
 """Legged-robot environment configuration tree (port of
 ``envs/legged_robot_config.py``).
 
-Field names and defaults match the JAX package.  Only the groups and fields
-that the ported slices (flat sampling MPC, rough-terrain policy evaluation
-and training, flat PPO training, ray perception, the actuator network, the
-RL extensions, confined and OBJ terrains and stone obstacles) read are here;
-the env raises on the settings the port does not implement yet (those fields
-stay so it can).
+Every group and field of the JAX package is here, with its default.  The
+fields in ``UNREAD_ENV_FIELDS`` and ``UNREAD_TRAIN_FIELDS`` are read by
+neither package's env or runner; the env and ``OnPolicyRunner`` refuse any
+other value than the default there (:func:`refuse_unread`), so setting one
+fails instead of doing nothing.  ``init_state.default_joint_angles`` and
+``runner.multi_stage_rewards`` are records the robots set, as in the JAX
+package: the env stands in the model JSON's ``default_dof_pos`` and keeps
+the reward stage itself (``rewards.multi_stage_rewards``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..utils.config import configclass
+
+# fields kept with the JAX package's defaults that nothing reads
+UNREAD_ENV_FIELDS: Tuple[str, ...] = (
+    "env.send_timeouts", "asset.disable_gravity", "asset.self_collisions",
+    "terrain.dynamic_friction", "terrain.restitution", "terrain.slope_treshold",
+    "terrain.random_origins", "terrain.origins_x_range", "terrain.origins_y_range",
+    "terrain.height_clearance_factor", "viewer.ref_env", "viewer.pos", "viewer.lookat")
+UNREAD_TRAIN_FIELDS: Tuple[str, ...] = (
+    "runner_class_name", "runner.algorithm_class_name", "runner.logger", "runner.resume_path")
+
+
+def refuse_unread(cfg, paths) -> None:
+    """Raise ``ValueError`` naming every dotted field of ``paths`` under
+    ``cfg`` whose value differs from its class default."""
+    bad = []
+    for path in paths:
+        *groups, name = path.split(".")
+        owner = cfg
+        for g in groups:
+            owner = getattr(owner, g)
+        value = getattr(owner, name)
+        if value != getattr(type(owner)(), name):
+            bad.append(f"{path}={value!r}")
+    if bad:
+        hint = " (ELG_LOGGER chooses the metrics sink)" if any(
+            b.startswith("runner.logger") for b in bad) else ""
+        raise ValueError(f"read by neither the env nor the runner, so only the default is "
+                         f"accepted: {', '.join(bad)}{hint}")
 
 
 @configclass
@@ -22,6 +52,7 @@ class EnvCfg:
     num_privileged_obs: Optional[int] = None
     num_actions: int = 12
     env_spacing: float = 3.0
+    send_timeouts: bool = True
     episode_length_s: float = 20.0
 
 
@@ -36,6 +67,8 @@ class TerrainCfg:
     border_size: float = 25.0
     curriculum: bool = True
     static_friction: float = 1.0
+    dynamic_friction: float = 1.0
+    restitution: float = 0.0
     measure_heights: bool = True
     measured_points_x: List[float] = [-0.8, -0.7, -0.6, -0.5, -0.4, -0.3, -0.2, -0.1,
                                       0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8]
@@ -56,9 +89,15 @@ class TerrainCfg:
     # confined: cumulative [tunnel, barrier, timber_piles, confined_gap(,
     # column_obstacles, wall_with_gap)]
     confined_terrain_proportions: List[float] = [0.25, 0.5, 0.75, 1.0]
+    slope_treshold: float = 0.75
     # physics contacts on the terrain's triangle mesh (sphere-vs-mesh SDF);
     # needs a terrain that carries one, and steps the plain ABA engine
     trimesh_contacts: bool = False
+    # random-origin generation of confined maps
+    random_origins: bool = False
+    origins_x_range: List[float] = [0.0, 0.0]
+    origins_y_range: List[float] = [0.0, 0.0]
+    height_clearance_factor: float = 1.0
 
 
 @configclass
@@ -85,8 +124,9 @@ class InitStateCfg:
     rot: List[float] = [0.0, 0.0, 0.0, 1.0]  # xyzw
     lin_vel: List[float] = [0.0, 0.0, 0.0]
     ang_vel: List[float] = [0.0, 0.0, 0.0]
-    # default joint angles come from the robot model JSON (default_dof_pos),
-    # as in the JAX env
+    # the robots' published default pose; the env reads the model JSON's
+    # default_dof_pos instead, as the JAX env does
+    default_joint_angles: Dict[str, float] = {}
 
 
 @configclass
@@ -109,7 +149,11 @@ class AssetCfg:
     foot_name: str = "None"
     penalize_contacts_on: List[str] = []
     terminate_after_contacts_on: List[str] = []
+    disable_gravity: bool = False
     fix_base_link: bool = False     # the base is welded to the world (an arm)
+    self_collisions: int = 0
+    # every joint's rotor armature when non-zero (replaces the model's)
+    armature: float = 0.0
 
 
 @configclass
@@ -205,6 +249,12 @@ class SimCfg:
     contact_kt: float = 1.0e4
     contact_kt_spring: float = 3.0e4
     joint_damping: float = 0.0
+    # "pallas": the fused kernel on the card (its plain version on the CPU)
+    # where the scene allows it, else the plain ABA engine; "aba" or "crba":
+    # the plain engine with that solver on any device
+    solver: str = "pallas"
+    # clamp joint velocities to the model's limits (else to +-500 rad/s)
+    enforce_dof_vel_limits: bool = True
 
 
 @configclass
@@ -246,6 +296,13 @@ class DepthCfg:
 
 
 @configclass
+class ViewerCfg:
+    ref_env: int = 0
+    pos: List[float] = [10.0, 0.0, 6.0]
+    lookat: List[float] = [11.0, 5.0, 3.0]
+
+
+@configclass
 class ObstacleGenCfg:
     """Passive stone obstacles dropped around each robot
     (terrain/dynamic_obstacles.py)."""
@@ -278,6 +335,7 @@ class LeggedRobotCfg:
     sim: SimCfg = SimCfg()
     raycaster: RaycasterCfg = RaycasterCfg()
     depth: DepthCfg = DepthCfg()
+    viewer: ViewerCfg = ViewerCfg()
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +380,7 @@ class AlgorithmCfg:
 @configclass
 class RunnerCfg:
     policy_class_name: str = "ActorCritic"
+    algorithm_class_name: str = "PPO"
     num_steps_per_env: int = 24
     max_iterations: int = 1500
     save_interval: int = 50
@@ -330,12 +389,16 @@ class RunnerCfg:
     resume: bool = False
     load_run: int = -1
     checkpoint: int = -1
+    resume_path: Optional[str] = None
+    multi_stage_rewards: bool = False
     empirical_normalization: bool = False
+    logger: str = "tensorboard"
 
 
 @configclass
 class LeggedRobotCfgPPO:
     seed: int = 1
+    runner_class_name: str = "OnPolicyRunner"
     policy: PolicyCfg = PolicyCfg()
     algorithm: AlgorithmCfg = AlgorithmCfg()
     runner: RunnerCfg = RunnerCfg()

@@ -39,8 +39,8 @@ class RobotNavCfg(RobotTrajGradSamplingCfg):
 class RobotBatchRolloutNav(RobotTrajGradSampling):
     """The sampling-MPC env with goal-seeking commands."""
 
-    def __init__(self, cfg: RobotNavCfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: RobotNavCfg, **kw):
+        super().__init__(cfg, **kw)
         nav = cfg.navi_opt
         t = lambda v: torch.tensor(v, dtype=torch.float32, device=self.device)
         self.goal_pos, self.start_pos, self.start_quat = (

@@ -43,8 +43,8 @@ class RobotBatchRolloutPercept(RobotTrajGradSampling):
     """Ray and SDF observation channels, per-body SDF queries and the
     ``sdf_clearance`` reward term."""
 
-    def __init__(self, cfg: RobotPerceptCfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: RobotPerceptCfg, **kw):
+        super().__init__(cfg, **kw)
         bodies = (body_indices_matching(self.model, cfg.sdf.query_bodies)
                   if cfg.sdf.enable_sdf else [])
         self.sdf_bodies = torch.as_tensor(bodies, dtype=torch.int64, device=self.device)

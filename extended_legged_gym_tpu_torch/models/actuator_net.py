@@ -8,7 +8,9 @@ place): two LSTM layers of 8 units, a linear head, the input scaling
 ``in_scale`` (2.0, 0.25) and the output scaling ``out_scale`` (20).  The cell
 is written gate by gate in torch's gate order (i, f, g, o), as the JAX
 ``__call__`` is, over inputs ``[..., 2]``; no kernel stands behind it (the
-JAX module is plain ``jnp``).
+JAX module is plain ``jnp``).  ``extract_weights`` pulls the weights out of
+the reference's TorchScript file, ``save_weights_json`` writes them as that
+JSON and ``load_weights_json`` reads it back as tensors.
 """
 from __future__ import annotations
 
@@ -19,6 +21,29 @@ import numpy as np
 import torch
 
 Hidden = Tuple[torch.Tensor, torch.Tensor]
+
+
+def extract_weights(torchscript_path: str) -> Dict[str, np.ndarray]:
+    """The LSTM and linear parameters and the in / out scaling buffers
+    (flattened) of a TorchScript actuator network, as float arrays by name.
+    The scripted forward is ``out_scale * linear(lstm(in_scale * x))``."""
+    m = torch.jit.load(torchscript_path, map_location="cpu")
+    out = {name: p.detach().numpy() for name, p in m.named_parameters()}
+    out.update({name: b.detach().numpy().reshape(-1) for name, b in m.named_buffers()})
+    return out
+
+
+def save_weights_json(weights: Dict[str, np.ndarray], path: str):
+    with open(path, "w") as f:
+        json.dump({k: np.asarray(v).tolist() for k, v in weights.items()}, f)
+
+
+def load_weights_json(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """The weights of a :func:`save_weights_json` file as float32 tensors on
+    ``device``."""
+    with open(path) as f:
+        d = json.load(f)
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device) for k, v in d.items()}
 
 
 class ActuatorNetLSTM:
@@ -34,9 +59,7 @@ class ActuatorNetLSTM:
 
     @classmethod
     def from_json(cls, path: str, device="cpu") -> "ActuatorNetLSTM":
-        with open(path) as f:
-            d = json.load(f)
-        return cls({k: torch.as_tensor(np.array(v, np.float32), device=device) for k, v in d.items()})
+        return cls(load_weights_json(path, device))
 
     def init_hidden(self, batch_shape: Tuple[int, ...], device=None) -> Hidden:
         shape = tuple(batch_shape) + (self.num_layers, self.hidden)

@@ -70,6 +70,9 @@ def activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
             "lrelu": F.leaky_relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}[name]
 
 
+get_activation = activation_fn   # the JAX package's name
+
+
 class MLP(nn.Module):
     """flax's ``MLP``: ``Dense_0 .. Dense_n`` with the activation between
     them, none after the last."""

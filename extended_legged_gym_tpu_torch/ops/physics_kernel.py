@@ -308,9 +308,9 @@ class DecimatedEnvStep:
                  control_type: str = "P"):
         if control_type not in CONTROL_TYPES:
             raise NotImplementedError(f"fused step supports control types P and T, not {control_type}")
-        if sp.solver != "aba":
+        if sp.solver not in ("aba", "pallas"):
             raise ValueError(f"the fused step is the ABA step: SimParams.solver must be 'aba', "
-                             f"not {sp.solver!r}")
+                             f"not {sp.solver!r} ('pallas' is the env's name for it)")
         if any(t != "revolute" for t in model.joint_types):
             raise NotImplementedError("the kernel takes revolute-joint robots")
         if terrain.has_ceiling or terrain.contact_trimesh:
@@ -332,7 +332,10 @@ class DecimatedEnvStep:
         self.nf = nf
         self.NS = 13 + 2 * nj + 2 * ng
         tl = model.torque_limits
-        vl = np.minimum(model.dof_vel_limits, 500.0)
+        # the joint velocity clamp: the model's limits capped at 500 rad/s,
+        # or 500 rad/s with sp.enforce_dof_vel_limits off (the plain step's)
+        vl = (np.minimum(model.dof_vel_limits, 500.0) if sp.enforce_dof_vel_limits
+              else np.full(nj, 500.0, np.float32))
         self._host = dict(p=np.asarray(p_gains, np.float32), d=np.asarray(d_gains, np.float32),
                           ddp=np.asarray(default_dof_pos, np.float32), tl=np.asarray(tl, np.float32))
         self._dev = {}

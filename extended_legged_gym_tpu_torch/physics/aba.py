@@ -189,7 +189,7 @@ def aba_physics_step(model: RobotModel, terrain: TerrainData, sp: SimParams,
     pos, quat, th, vel, om, thd = integrate(
         state.base_pos, state.base_quat, state.joint_pos, state.base_lin_vel,
         state.base_ang_vel, state.joint_vel, udot, dt,
-        T["dof_vel_limits"])
+        T["dof_vel_limits"] if sp.enforce_dof_vel_limits else None)
     new_state = PhysState(pos, quat, th, vel, om, thd, contact.anchor)
 
     # implicit-consistent force report: post-step point velocities from the

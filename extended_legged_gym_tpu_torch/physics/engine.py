@@ -3,9 +3,11 @@
 :func:`physics_step` advances B envs by one sim dt with the solver that
 ``SimParams.solver`` names: ``"aba"``, the articulated-body step of
 ``physics/aba.py`` (the plain version of the fused CUDA kernel in
-``ops/physics_kernel.py``), or ``"crba"``, the dense joint-space solve
-assembled from body Jacobians (``physics/dynamics.py``), which is the oracle
-the ABA step is held to.  :class:`EngineEnvStep` is the env's engine route:
+``ops/physics_kernel.py``; ``"pallas"``, the env's name for the kernel
+route, runs it too, as in the JAX package), or ``"crba"``, the dense
+joint-space solve assembled from body Jacobians (``physics/dynamics.py``),
+which is the oracle the ABA step is held to.  :func:`step_batch` is the
+same step under the JAX package's batched name.  :class:`EngineEnvStep` is the env's engine route:
 the ABA step per substep for the scenes the fused kernel does not model (a
 ceiling, contacts on a triangle mesh)."""
 from __future__ import annotations
@@ -30,15 +32,20 @@ class SimParams:
     gravity: Tuple[float, float, float] = (0.0, 0.0, -9.81)
     contact: ContactParams = field(default_factory=default_contact_params)
     joint_damping: float = 0.0                            # implicit viscous joint damping
-    solver: str = "aba"                                   # "aba" or "crba" (dense; the oracle)
+    solver: str = "aba"                                   # "aba" ("pallas"), or "crba" (dense; the oracle)
+    # clamp joint velocities to the model's limits (capped at 500 rad/s);
+    # off, to the generic +-500 rad/s
+    enforce_dof_vel_limits: bool = True
 
 
 def default_sim_params(dt: float = 0.005, gravity=(0.0, 0.0, -9.81),
                        contact: Optional[ContactParams] = None,
-                       joint_damping: float = 0.0, solver: str = "aba") -> SimParams:
+                       joint_damping: float = 0.0, solver: str = "aba",
+                       enforce_dof_vel_limits: bool = True) -> SimParams:
     return SimParams(dt=float(dt), gravity=tuple(float(g) for g in gravity),
                      contact=contact if contact is not None else default_contact_params(),
-                     joint_damping=float(joint_damping), solver=solver)
+                     joint_damping=float(joint_damping), solver=solver,
+                     enforce_dof_vel_limits=bool(enforce_dof_vel_limits))
 
 
 @dataclass
@@ -103,15 +110,18 @@ def initial_state(model: RobotModel, B: int, pos=(0.0, 0.0, 0.6), quat=(0, 0, 0,
 
 def physics_step(model: RobotModel, terrain, sp: SimParams, state: PhysState,
                  joint_torque: torch.Tensor, env_params: EnvPhysParams):
-    """One semi-implicit Euler step of B envs with ``sp.solver``:
-    ``(new_state, StepReport)``."""
-    if sp.solver == "aba":
+    """One semi-implicit Euler step of B envs with ``sp.solver`` (``"pallas"``
+    steps ABA): ``(new_state, StepReport)``."""
+    if sp.solver in ("aba", "pallas"):
         from .aba import aba_physics_step
 
         return aba_physics_step(model, terrain, sp, state, joint_torque, env_params)
     if sp.solver != "crba":
-        raise ValueError(f"unknown solver {sp.solver!r}: 'aba' or 'crba'")
+        raise ValueError(f"unknown solver {sp.solver!r}: 'aba', 'crba' or 'pallas'")
     return _physics_step_crba(model, terrain, sp, state, joint_torque, env_params)
+
+
+step_batch = physics_step   # the JAX package's name for the batched step
 
 
 def geom_positions(model: RobotModel, kin) -> torch.Tensor:
@@ -162,7 +172,7 @@ def _physics_step_crba(model, terrain, sp, state, joint_torque, env_params):
     pos, quat, th, v, w, thd = integrate(
         state.base_pos, state.base_quat, state.joint_pos, state.base_lin_vel,
         state.base_ang_vel, state.joint_vel, udot, sp.dt,
-        joint_vel_limit=T["dof_vel_limits"])
+        joint_vel_limit=T["dof_vel_limits"] if sp.enforce_dof_vel_limits else None)
     new_state = PhysState(pos, quat, th, v, w, thd, contact.anchor)
 
     # force report with the post-step velocities (implicit-consistent)
@@ -179,12 +189,13 @@ def _physics_step_crba(model, terrain, sp, state, joint_torque, env_params):
 
 class EngineEnvStep:
     """One physics substep of B envs with the torques passed in, on the plain
-    ABA engine (:func:`physics_step`), for the scenes the fused kernel does
-    not model: a terrain with a ceiling (the kernel has no ceiling branch)
-    or with contacts on its triangle mesh (the kernel's tangent-plane scheme
-    assumes mostly vertical normals).  The env chooses it from the scene's
-    configuration, as the JAX env leaves its fused step for the XLA engine;
-    it is never a fallback for a kernel that failed.  Called as ``(phys, tau,
+    engine (:func:`physics_step`, with ``sp.solver``), for the scenes the
+    fused kernel does not model: a terrain with a ceiling (the kernel has no
+    ceiling branch) or with contacts on its triangle mesh (the kernel's
+    tangent-plane scheme assumes mostly vertical normals), and for any scene
+    whose config asks for ``sim.solver`` "aba" or "crba".  The env chooses
+    it from its configuration, as the JAX env leaves its fused step for the
+    XLA engine; it is never a fallback for a kernel that failed.  Called as ``(phys, tau,
     env_params) -> (new_phys, report)``; ``EngineEnvStep.engine_substeps``
     counts the substeps of all instances."""
 

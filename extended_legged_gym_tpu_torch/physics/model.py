@@ -78,6 +78,10 @@ class RobotModel:
         return 6 + self.nj
 
     @property
+    def nq(self) -> int:
+        return 7 + self.nj
+
+    @property
     def num_feet(self) -> int:
         return int(self.foot_body.shape[0])
 

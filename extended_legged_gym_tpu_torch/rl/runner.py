@@ -48,7 +48,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..envs.legged_robot import EnvState, LeggedRobot
-from ..envs.legged_robot_config import LeggedRobotCfgPPO
+from ..envs.legged_robot_config import UNREAD_TRAIN_FIELDS, LeggedRobotCfgPPO, refuse_unread
 from ..models.networks import (ActorCritic, ActorCriticRecurrent, RecurrentInferencePolicy,
                                RunningNorm, dump_checkpoint, flax_tree, gaussian_log_prob,
                                inference_policy, load_flax_tree, mask_carry,
@@ -64,6 +64,7 @@ class OnPolicyRunner:
     def __init__(self, env: LeggedRobot, train_cfg: LeggedRobotCfgPPO,
                  log_dir: Optional[str] = None, seed: Optional[int] = None):
         alg, pol, run = train_cfg.algorithm, train_cfg.policy, train_cfg.runner
+        refuse_unread(train_cfg, UNREAD_TRAIN_FIELDS)
         if run.policy_class_name not in ("ActorCritic", "ActorCriticRecurrent"):
             raise NotImplementedError(f"not ported yet: policy {run.policy_class_name}")
         self.recurrent = run.policy_class_name == "ActorCriticRecurrent"

@@ -4,9 +4,9 @@ from __future__ import annotations
 
 from ..envs.batch_rollout import RobotBatchRollout, RobotTrajGradSampling
 from ..envs.legged_robot import LeggedRobot
-from ..envs.navigation import RobotBatchRolloutNav
-from ..envs.percept import RobotBatchRolloutPercept
-from ..envs.plan_grad import RobotPlanGradSampling
+from ..envs.navigation import RobotBatchRolloutNav, RobotNavCfg  # noqa: F401
+from ..envs.percept import RobotBatchRolloutPercept, RobotPerceptCfg  # noqa: F401
+from ..envs.plan_grad import RobotPlanGradSampling, RobotPlanGradSamplingCfg  # noqa: F401
 from ..utils.task_registry import task_registry
 from . import (a1, anymal_b, anymal_c, anymal_c_traj, anymal_c_variants, cassie, cyberdog2,
                cyberdog2_standdance, cyberdog2_walk, elspider_air, franka, go2, task_variants)

@@ -10,6 +10,12 @@ import os
 from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
 from .anymal_c import _DATA
 
+A1_DEFAULT_ANGLES = {
+    "FL_hip_joint": 0.1, "RL_hip_joint": 0.1, "FR_hip_joint": -0.1, "RR_hip_joint": -0.1,
+    "FL_thigh_joint": 0.8, "RL_thigh_joint": 1.0, "FR_thigh_joint": 0.8, "RR_thigh_joint": 1.0,
+    "FL_calf_joint": -1.5, "RL_calf_joint": -1.5, "FR_calf_joint": -1.5, "RR_calf_joint": -1.5,
+}
+
 
 def a1_rough_cfg() -> LeggedRobotCfg:
     """A1 on the generated curriculum grid (contacts on its heightfield)
@@ -19,6 +25,7 @@ def a1_rough_cfg() -> LeggedRobotCfg:
     cfg.env.num_observations = 48 + 187
     cfg.terrain.mesh_type = "trimesh"
     cfg.init_state.pos = [0.0, 0.0, 0.42]
+    cfg.init_state.default_joint_angles = dict(A1_DEFAULT_ANGLES)
     cfg.control.control_type = "P"
     cfg.control.stiffness = {"joint": 20.0}
     cfg.control.damping = {"joint": 0.5}

@@ -6,7 +6,7 @@ from __future__ import annotations
 import os
 
 from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
-from .anymal_c import _DATA, anymal_c_rough_cfg
+from .anymal_c import ANYMAL_C_DEFAULT_ANGLES, _DATA, anymal_c_rough_cfg  # noqa: F401
 
 
 def anymal_b_rough_cfg() -> LeggedRobotCfg:

@@ -12,18 +12,26 @@ from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
 _DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                      "extended_legged_gym_tpu", "robots", "data")
 
+ANYMAL_C_DEFAULT_ANGLES = {
+    "LF_HAA": 0.0, "LH_HAA": 0.0, "RF_HAA": -0.0, "RH_HAA": -0.0,
+    "LF_HFE": 0.4, "LH_HFE": -0.4, "RF_HFE": 0.4, "RH_HFE": -0.4,
+    "LF_KFE": -0.8, "LH_KFE": 0.8, "RF_KFE": -0.8, "RH_KFE": 0.8,
+}
+
 
 def anymal_c_rough_cfg() -> LeggedRobotCfg:
     """ANYmal-C on the 8 x 8 curriculum grid (5 m subterrains at 0.1 m, 25 m
     border: a 900 x 900 heightfield) with the 187-point height scan
-    (235-dim observations), 4096 envs, staged reward scales.  The default
-    joint angles are the model JSON's, as in the JAX env."""
+    (235-dim observations), 4096 envs, staged reward scales.  The env
+    stands the robot in the model JSON's default pose, as the JAX env does;
+    ``default_joint_angles`` records the published one."""
     cfg = LeggedRobotCfg()
     cfg.env.num_envs = 4096
     cfg.env.num_actions = 12
     cfg.env.num_observations = 235
     cfg.terrain.mesh_type = "trimesh"
     cfg.init_state.pos = [0.0, 0.0, 0.6]
+    cfg.init_state.default_joint_angles = dict(ANYMAL_C_DEFAULT_ANGLES)
     cfg.control.stiffness = {"HAA": 80.0, "HFE": 80.0, "KFE": 80.0}
     cfg.control.damping = {"HAA": 2.0, "HFE": 2.0, "KFE": 2.0}
     cfg.control.action_scale = 0.5

@@ -109,6 +109,12 @@ def anymal_c_traj_sampling_cfg(num_main_envs: int = 1) -> RobotTrajGradSamplingC
     cfg.terrain.curriculum = False
 
     cfg.init_state.pos = [0.0, 0.0, 0.5]
+    cfg.init_state.default_joint_angles = {       # deeper knee bend than the RL configs
+        "LF_HAA": 0.0, "LF_HFE": 0.4, "LF_KFE": -1.1,
+        "RF_HAA": 0.0, "RF_HFE": 0.4, "RF_KFE": -1.1,
+        "LH_HAA": 0.0, "LH_HFE": -0.4, "LH_KFE": 1.1,
+        "RH_HAA": 0.0, "RH_HFE": -0.4, "RH_KFE": 1.1,
+    }
     cfg.control.stiffness = {"HAA": 80.0, "HFE": 80.0, "KFE": 80.0}
     cfg.control.damping = {"HAA": 2.0, "HFE": 2.0, "KFE": 2.0}
     cfg.control.action_scale = 0.5

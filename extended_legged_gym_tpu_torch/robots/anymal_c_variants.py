@@ -117,8 +117,8 @@ class AnymalStudent(LeggedRobot):
     history_len = 5
     single_obs_dim = 48
 
-    def __init__(self, cfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg, **kw):
+        super().__init__(cfg, **kw)
         if self.num_obs != self.single_obs_dim * self.history_len:
             raise ValueError(f"num_observations {self.num_obs}: the student reads "
                              f"{self.history_len} frames of {self.single_obs_dim}")

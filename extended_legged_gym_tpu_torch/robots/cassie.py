@@ -22,6 +22,12 @@ def cassie_rough_cfg() -> LeggedRobotCfg:
     cfg.terrain.measured_points_x = list(_SCAN)
     cfg.terrain.measured_points_y = list(_SCAN)
     cfg.init_state.pos = [0.0, 0.0, 1.0]
+    cfg.init_state.default_joint_angles = {
+        "hip_abduction_left": 0.1, "hip_rotation_left": 0.0, "hip_flexion_left": 1.0,
+        "thigh_joint_left": -1.8, "ankle_joint_left": 1.57, "toe_joint_left": -1.57,
+        "hip_abduction_right": -0.1, "hip_rotation_right": 0.0, "hip_flexion_right": 1.0,
+        "thigh_joint_right": -1.8, "ankle_joint_right": 1.57, "toe_joint_right": -1.57,
+    }
     cfg.control.stiffness = {"hip_abduction": 100.0, "hip_rotation": 100.0,
                              "hip_flexion": 200.0, "thigh_joint": 200.0,
                              "ankle_joint": 200.0, "toe_joint": 40.0}

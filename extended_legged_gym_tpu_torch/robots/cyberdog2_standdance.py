@@ -41,8 +41,8 @@ class CyberStandDanceEnv(LeggedRobot):
     gait_freq = 2.5
     upright_vec = (0.2, 0.0, 1.0)
 
-    def __init__(self, cfg: LeggedRobotCfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: LeggedRobotCfg, **kw):
+        super().__init__(cfg, **kw)
         self.hip_joints = torch.as_tensor(
             [i for i, n in enumerate(self.model.joint_names) if "hip" in n], device=self.device)
         # the feet in the base frame at the default pose (the foot-shift term)

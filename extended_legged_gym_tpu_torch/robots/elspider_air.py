@@ -19,6 +19,12 @@ from .anymal_c import _DATA
 # in antiphase across
 TRIPODS = ((0, 1, 5), (2, 3, 4))
 
+ELSPIDER_DEFAULT_ANGLES = {}
+for leg in ["RF", "RM", "RB", "LF", "LM", "LB"]:
+    ELSPIDER_DEFAULT_ANGLES[f"{leg}_HAA"] = 0.0
+    ELSPIDER_DEFAULT_ANGLES[f"{leg}_HFE"] = 0.6
+    ELSPIDER_DEFAULT_ANGLES[f"{leg}_KFE"] = 0.6
+
 class ElSpider(LeggedRobot):
     """The hexapod with the tripod-gait synchronization term."""
 
@@ -45,6 +51,7 @@ def elspider_air_rough_cfg() -> LeggedRobotCfg:
     cfg.terrain.max_init_terrain_level = 0
     cfg.terrain.terrain_proportions = [0.1, 0.1, 0.3, 0.3, 0.2]
     cfg.init_state.pos = [0.0, 0.0, 0.4]
+    cfg.init_state.default_joint_angles = dict(ELSPIDER_DEFAULT_ANGLES)
     cfg.control.stiffness = {"HAA": 80.0, "HFE": 80.0, "KFE": 80.0}
     cfg.control.damping = {"HAA": 2.0, "HFE": 2.0, "KFE": 2.0}
     cfg.control.action_scale = 0.5
@@ -90,6 +97,7 @@ def elspider_air_ppo_cfg() -> LeggedRobotCfgPPO:
     """The base [512, 256, 128] actor and critic."""
     t = LeggedRobotCfgPPO()
     t.runner.experiment_name = "flat_elspider_air"
+    t.runner.multi_stage_rewards = True   # read by no runner: the env keeps the stage
     return t
 
 
@@ -99,8 +107,8 @@ class FootTrackElSpider(ElSpider):
     each env's time in its episode, tripod phases in the model's foot
     order."""
 
-    def __init__(self, cfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg, **kw):
+        super().__init__(cfg, **kw)
         pcfg = RaibertHeuristicCfg()
         # hips in the model's foot order: LB, LF, LM, RB, RF, RM
         pcfg.hip_offsets = [[-0.3, 0.25], [0.3, 0.25], [0.0, 0.28],

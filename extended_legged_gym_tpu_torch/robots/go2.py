@@ -11,9 +11,16 @@ from ..envs.batch_rollout import RobotTrajGradSamplingCfg
 from ..envs.legged_robot_config import LeggedRobotCfg, LeggedRobotCfgPPO
 from .anymal_c import _DATA
 
+GO2_DEFAULT_ANGLES = {
+    "FL_hip_joint": 0.1, "RL_hip_joint": 0.1, "FR_hip_joint": -0.1, "RR_hip_joint": -0.1,
+    "FL_thigh_joint": 0.8, "RL_thigh_joint": 1.0, "FR_thigh_joint": 0.8, "RR_thigh_joint": 1.0,
+    "FL_calf_joint": -1.5, "RL_calf_joint": -1.5, "FR_calf_joint": -1.5, "RR_calf_joint": -1.5,
+}
+
 
 def _go2_base(cfg):
     cfg.init_state.pos = [0.0, 0.0, 0.33]
+    cfg.init_state.default_joint_angles = dict(GO2_DEFAULT_ANGLES)
     cfg.control.stiffness = {"joint": 30.0}
     cfg.control.damping = {"joint": 0.8}
     cfg.control.action_scale = 0.3

@@ -315,8 +315,8 @@ class ElSpiderAirTrajGradSampling(elspider_air.ElSpider, RobotTrajGradSampling):
     """The hexapod's sampling-MPC env: gait-scheduler tracking rewards and a
     termination when upside down."""
 
-    def __init__(self, cfg, device="cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg, **kw):
+        super().__init__(cfg, **kw)
         gcfg = GaitSchedulerCfg()
         gcfg.dt = self.dt
         gcfg.period = 1.4

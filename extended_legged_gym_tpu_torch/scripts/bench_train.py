@@ -25,9 +25,16 @@ After ``warmup`` iterations: the seconds per iteration split into collection
 and update (host clock around each part, ending in a synchronize) over
 ``iters`` iterations, and, from a torch.profiler trace of ``reps``
 iterations, the wall ms per iteration (profiler on), the device-busy ms per
-iteration, the device's idle share, the physics kernel's (B1 on flat
+iteration, the device's idle share against the profiled wall
+(``device_idle_share``) and against the unprofiled iteration
+(``device_idle_share_unprofiled``; the profiler's host overhead stretches the
+wall, so the first is the larger), the physics kernel's (B1 on flat
 ground, B2 on a heightfield) ms and launches per iteration, and the device
-kernels that take the most time.
+kernels that take the most time.  On the PPO paths also the host ms that
+``OnPolicyRunner.learn``'s ``MetricsWriter.write`` adds per iteration, with
+the JSONL file alone and with the TensorBoard sink (where it imports), its
+share of an iteration of ``learn`` (the unprofiled iteration plus the
+write), and the first write's ms (the sink's import and set-up).
 
 Usage, from the repository root:
 
@@ -38,6 +45,7 @@ Prints one JSON object.
 """
 import argparse
 import json
+import tempfile
 import time
 
 import torch
@@ -46,6 +54,7 @@ from extended_legged_gym_tpu_torch import robots  # noqa: F401  (populates the r
 from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
 from extended_legged_gym_tpu_torch.scripts.bench_mpc import device_split
 from extended_legged_gym_tpu_torch.scripts.eval_policy import card_name
+from extended_legged_gym_tpu_torch.utils.metrics import MetricsWriter
 from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
 
 TEACHER = "logs/flat_anymal_c/Aug21_12-38-39_r5_ft4/model_final.pkl"
@@ -101,8 +110,30 @@ def profile_iterations(iterate, warmup: int, iters: int, reps: int) -> dict:
                 s_per_iteration=(col + upd) / iters,
                 profiled_wall_ms=wall_ms, device_busy_ms=split["device_busy_ms"],
                 device_idle_share=1.0 - split["device_busy_ms"] / wall_ms,
+                device_idle_share_unprofiled=1.0 - split["device_busy_ms"] * iters
+                / ((col + upd) * 1e3),
                 kernel_ms=split["physics_kernel_ms"], kernel_launches=split["physics_launches"],
                 top_device_kernels=top_device_kernels(prof, reps))
+
+
+def metrics_write_ms(metrics: dict, n: int = 50) -> dict:
+    """Host ms per ``MetricsWriter.write`` of one iteration's ``metrics`` (a
+    dict of floats), after a first write timed apart, for the JSONL file
+    alone and with the TensorBoard sink; the sinks each writer opened."""
+    out = {}
+    for name, use_tb in (("jsonl", False), ("jsonl+tensorboard", True)):
+        with tempfile.TemporaryDirectory() as d:
+            w = MetricsWriter(d, use_tensorboard=use_tb, backend="tensorboard")
+            t0 = time.perf_counter()
+            w.write(0, metrics)
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(1, n + 1):
+                w.write(i, metrics)
+            out[name] = dict(ms=(time.perf_counter() - t0) * 1e3 / n, first_ms=first * 1e3,
+                             sinks=[type(s).__name__ for s in w.sinks])
+            w.close()
+    return out
 
 
 def ppo_iteration(task: str, seed: int, device, recurrent: bool = False, num_envs: int = 4096):
@@ -114,13 +145,18 @@ def ppo_iteration(task: str, seed: int, device, recurrent: bool = False, num_env
     if recurrent:
         recurrent_train_cfg(train_cfg)
     runner = OnPolicyRunner(env, train_cfg)
+    last = {}
 
     def iterate():
-        runner.train_iteration()
+        last["metrics"] = runner.train_iteration()
         return runner.last_times
 
+    def write_cost():
+        m = {k: float(v) for k, v in last["metrics"].items()}
+        return metrics_write_ms({**m, **runner.last_times, "fps": 0.0})
+
     return iterate, dict(task=task, seed=seed, envs=env.num_envs, recurrent=recurrent,
-                         steps_per_env=runner.num_steps_per_env)
+                         steps_per_env=runner.num_steps_per_env), write_cost
 
 
 def estimator_iteration(path: str, device):
@@ -161,14 +197,19 @@ def distill_iteration(device):
 
 def train_profile(warmup=3, iters=10, reps=2, device="cuda", task="anymal_c_flat", seed=2,
                   path="ppo", num_envs=4096):
+    write_cost = None
     if path in ("ppo", "ppo_recurrent"):
-        iterate, info = ppo_iteration(task, seed, device, recurrent=path == "ppo_recurrent",
-                                      num_envs=num_envs)
+        iterate, info, write_cost = ppo_iteration(
+            task, seed, device, recurrent=path == "ppo_recurrent", num_envs=num_envs)
     elif path == "distill":
         iterate, info = distill_iteration(device)
     else:
         iterate, info = estimator_iteration(path, device)
     out = profile_iterations(iterate, warmup, iters, reps)
+    if write_cost is not None:
+        out["metrics_write"] = write_cost()
+        for w in out["metrics_write"].values():
+            w["share_of_learn_iteration"] = w["ms"] / (w["ms"] + out["s_per_iteration"] * 1e3)
     return dict(path=path, **info, **out,
                 env_steps_per_s=info["envs"] * info["steps_per_env"] / out["s_per_iteration"])
 

@@ -31,7 +31,12 @@ from .heightfield import TerrainData, sample_height_and_normal
 
 # stone type codes
 BOX, SPHERE, CAPSULE = 0, 1, 2
-NUM_COLORS = 7
+# the stones' RGB palette (a stone's color is an index into it)
+STONE_COLORS = (
+    (0.6, 0.6, 0.6), (0.7, 0.7, 0.7), (0.5, 0.5, 0.5), (0.6, 0.5, 0.4),
+    (0.7, 0.6, 0.5), (0.5, 0.4, 0.3), (0.4, 0.4, 0.4),
+)
+NUM_COLORS = len(STONE_COLORS)
 
 
 @configclass

@@ -67,6 +67,11 @@ class TrajGradSampling:
         return torch.zeros(self.num_envs, self.cfg.horizon_nodes + 1, self.num_actions,
                            device=self.device)
 
+    def init_from_actions(self, action_seq: torch.Tensor) -> torch.Tensor:
+        """Warm start: the nodes fitted to a dense action sequence that a
+        policy rolled out, ``[..., Hsample+1, A] -> [..., Hnode+1, A]``."""
+        return self.u2node(action_seq)
+
     def _disc(self) -> torch.Tensor:
         return self.cfg.gamma ** torch.arange(self.cfg.horizon_samples + 1, dtype=torch.float32,
                                               device=self.device)

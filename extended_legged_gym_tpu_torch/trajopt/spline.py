@@ -6,6 +6,7 @@ import torch
 
 from ..utils.device import resolve_device
 from ..utils.math import _spline_interp_matrix_np
+from ..utils.math import spline_fit_matrix, spline_interp_matrix  # noqa: F401 (public API)
 
 
 class TrajSpline:

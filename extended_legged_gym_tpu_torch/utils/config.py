@@ -8,7 +8,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 from dataclasses import dataclass, field, fields, is_dataclass
-from typing import Any, Type, TypeVar
+from typing import Any, Dict, Type, TypeVar
 
 T = TypeVar("T")
 
@@ -47,4 +47,19 @@ def class_to_dict(obj: Any) -> Any:
         return type(obj)(class_to_dict(v) for v in obj)
     if isinstance(obj, dict):
         return {k: class_to_dict(v) for k, v in obj.items()}
+    return obj
+
+
+def update_class_from_dict(obj: Any, d: Dict[str, Any]) -> Any:
+    """Update a config in place from a nested dict (``class_to_dict``'s
+    shape): a dict value updates a nested config group field by field, any
+    other value replaces the field; keys the config lacks are skipped."""
+    for key, value in d.items():
+        if not hasattr(obj, key):
+            continue
+        attr = getattr(obj, key)
+        if is_dataclass(attr) and isinstance(value, dict):
+            update_class_from_dict(attr, value)
+        else:
+            setattr(obj, key, value)
     return obj

@@ -1,8 +1,10 @@
-"""Quaternion, rotation and spline math (port of ``utils/math.py``).
+"""Quaternion, rotation, random and spline math (port of ``utils/math.py``).
 
-Only the subset the ported slices use.  Quaternions are **xyzw**
-(scalar last), as in the JAX package.  Every function broadcasts over leading
-batch dimensions.  The spline matrices are host numpy, as there.
+Quaternions are **xyzw** (scalar last), as in the JAX package.  Every
+function broadcasts over leading batch dimensions.  The random helpers take
+an explicit ``torch.Generator`` where the JAX ones take a key.  The spline
+basis matrices are float32 tensors on the CPU (``.to(device)`` them); the
+interpolation matrices are built in host numpy, as there.
 """
 from __future__ import annotations
 
@@ -14,6 +16,13 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross product over the last axis, broadcasting the leading ones."""
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b)
+
+
+def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity quaternions ``[*shape, 4]``."""
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    q[..., 3] = 1.0
+    return q
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -44,6 +53,9 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     xyz, w = q[..., :3], q[..., 3:4]
     t = 2.0 * cross(xyz, v)
     return v - w * t + cross(xyz, t)
+
+
+quat_apply = quat_rotate   # the reference's alias (isaacgym.torch_utils.quat_apply)
 
 
 def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
@@ -142,12 +154,120 @@ def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rotate(yaw_quat(q), v)
 
 
+def quat_apply_yaw_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of only the yaw component of q."""
+    return quat_rotate_inverse(yaw_quat(q), v)
+
+
+def quat_to_ypr(q: torch.Tensor):
+    """``(yaw, pitch, roll)`` (ZYX intrinsic) of q, the inverse of
+    :func:`ypr_to_quat`."""
+    x, y, z, w = q.unbind(-1)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return yaw, pitch, roll
+
+
+def quat_box_minus(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Rotation vector taking q2 to q1 (world frame), the shorter way round."""
+    dq = quat_mul(q1, quat_conjugate(q2))
+    xyz, w = dq[..., :3], dq[..., 3]
+    norm = torch.linalg.norm(xyz, dim=-1).clamp(min=1e-9)
+    angle = 2.0 * torch.atan2(norm, torch.abs(w))
+    return (xyz / norm[..., None]) * (torch.sign(w) * angle)[..., None]
+
+
+def _draw_uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """U[0, 1) draws of ``shape``: the one place the random helpers below
+    draw, so a test can put the JAX draws in their place."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def torch_rand_sqrt_float(generator: torch.Generator, lower, upper, shape,
+                          device=None) -> torch.Tensor:
+    """Values in [lower, upper] denser near both ends (a uniform draw ``r``
+    in [-1, 1] mapped to ``sign(r) sqrt(|r|)``); the reference's velocity
+    resets draw them."""
+    r = 2.0 * _draw_uniform(generator, shape, device) - 1.0
+    r = torch.where(r < 0, -torch.sqrt(-r), torch.sqrt(r))
+    r = (r + 1.0) / 2.0
+    return lower + (upper - lower) * r
+
+
+def uniform(generator: torch.Generator, lower, upper, shape, device=None) -> torch.Tensor:
+    """Uniform draws in [lower, upper)."""
+    return _draw_uniform(generator, shape, device) * (upper - lower) + lower
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric cross-product matrix: skew(v) @ u == cross(v, u)."""
     x, y, z = v.unbind(-1)
     zero = torch.zeros_like(x)
     m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+# Spline basis matrices over rows of [1, t, t^2, t^3] (linear: [1, t]);
+# the knots are stacked along the first axis.
+LINEAR_MAT = torch.tensor([[1.0, 0.0], [-1.0, 1.0]])
+
+UNIFORM_BSPLINE_MAT = torch.tensor([[1.0, 4.0, 1.0, 0.0],
+                                    [-3.0, 0.0, 3.0, 0.0],
+                                    [3.0, -6.0, 3.0, 0.0],
+                                    [-1.0, 3.0, -3.0, 1.0]]) / 6.0
+
+BEZIER_MAT = torch.tensor([[1.0, 0.0, 0.0, 0.0],
+                           [-3.0, 3.0, 0.0, 0.0],
+                           [3.0, -6.0, 3.0, 0.0],
+                           [-1.0, 3.0, -3.0, 1.0]])
+
+HERMITE_MAT = torch.tensor([[1.0, 0.0, 0.0, 0.0],
+                            [0.0, 1.0, 0.0, 0.0],
+                            [-3.0, -2.0, 3.0, -1.0],
+                            [2.0, 1.0, -2.0, 1.0]])
+
+# Catmull-Rom: the interpolating cubic through the two middle knots
+CATMULL_ROM_MAT = torch.tensor([[0.0, 2.0, 0.0, 0.0],
+                                [-1.0, 0.0, 1.0, 0.0],
+                                [2.0, -5.0, 4.0, -1.0],
+                                [-1.0, 3.0, -3.0, 1.0]]) / 2.0
+
+
+def _t_vec(t, order: int, eval_mode: str, like: torch.Tensor) -> torch.Tensor:
+    """Rows ``[1, t(, t^2, t^3)]`` (``eval_mode`` "pos") or their derivative
+    in t, one per value of ``t``."""
+    t = torch.as_tensor(t, dtype=like.dtype, device=like.device).reshape(-1)
+    one, zero = torch.ones_like(t), torch.zeros_like(t)
+    if order == 2:
+        cols = [one, t] if eval_mode == "pos" else [zero, one]
+    elif eval_mode == "pos":
+        cols = [one, t, t ** 2, t ** 3]
+    else:
+        cols = [zero, one, 2 * t, 3 * t ** 2]
+    return torch.stack(cols, dim=1)
+
+
+def linear_evaluate(knots: torch.Tensor, t) -> torch.Tensor:
+    """The segment between ``knots`` [2, ...] at ``t`` in [0, 1]: [len(t), ...]."""
+    mat = LINEAR_MAT.to(knots)
+    return torch.tensordot(_t_vec(t, 2, "pos", knots) @ mat, knots, dims=1)
+
+
+def cubic_evaluate(knots: torch.Tensor, t, para_mat: torch.Tensor,
+                   eval_mode: str = "pos") -> torch.Tensor:
+    """The cubic of basis ``para_mat`` over ``knots`` [4, ...] at ``t`` in
+    [0, 1] (``eval_mode`` "vel": its derivative in t): [len(t), ...]."""
+    mat = para_mat.to(knots)
+    return torch.tensordot(_t_vec(t, 4, eval_mode, knots) @ mat, knots, dims=1)
+
+
+def cubic_bezier_evaluate(knots: torch.Tensor, t) -> torch.Tensor:
+    return cubic_evaluate(knots, t, BEZIER_MAT)
+
+
+def cubic_hermite_evaluate(knots: torch.Tensor, t) -> torch.Tensor:
+    return cubic_evaluate(knots, t, HERMITE_MAT)
 
 
 def _spline_interp_matrix_np(n_nodes: int, n_dense: int, method: str = "spline") -> np.ndarray:
@@ -178,6 +298,13 @@ def _spline_interp_matrix_np(n_nodes: int, n_dense: int, method: str = "spline")
     else:
         raise ValueError(f"unknown interp method {method}")
     return A
+
+
+def spline_interp_matrix(n_nodes: int, n_dense: int, method: str = "spline",
+                         device="cpu") -> torch.Tensor:
+    """The interpolation matrix A [n_dense, n_nodes] (``dense = A @ nodes``)
+    as a float32 tensor on ``device``."""
+    return torch.as_tensor(_spline_interp_matrix_np(n_nodes, n_dense, method), device=device)
 
 
 def spline_fit_matrix(n_nodes: int, n_dense: int, method: str = "spline") -> np.ndarray:

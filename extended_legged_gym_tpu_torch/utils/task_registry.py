@@ -118,7 +118,8 @@ def get_args(default_task: str = "anymal_c_flat", argv=None) -> argparse.Namespa
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--max_iterations", type=int, default=None)
     parser.add_argument("--warmstart_pt", type=str, default=None,
-                        help="reference rsl_rl .pt checkpoint to warm-start from (not ported)")
+                        help="reference rsl_rl .pt checkpoint to warm-start "
+                             "PPO params from (DOF-order bridged)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; the CPU runs the plain physics")
     return parser.parse_args(argv)

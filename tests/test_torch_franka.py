@@ -111,7 +111,10 @@ def quiet(cfg, n=E):
     cfg.noise.add_noise = False
     cfg.domain_rand.randomize_friction = cfg.domain_rand.randomize_base_mass = False
     cfg.domain_rand.push_robots = False
-    cfg.sim.solver = "aba"
+    # the JAX env on its ABA engine; the port's keeps sim.solver "pallas",
+    # its kernel route (the plain version on the CPU)
+    if type(cfg).__module__.startswith("extended_legged_gym_tpu."):
+        cfg.sim.solver = "aba"
     return cfg
 
 

@@ -26,7 +26,11 @@ el_mini_base_pose_ctrl env step, the registry holding all 59 tasks; the URDF,
 reference-checkpoint, export, plot-logger, replay and torch.distributed
 modules and the play, weak-scaling, parity and model-extraction scripts
 import, the process joins no group where there is none to join, and the
-flat runner exports its TorchScript and torch.export files."""
+flat runner exports its TorchScript and torch.export files; the metrics
+writer's TensorBoard sink writes an event file, the quaternion, random and
+spline helpers run, the actuator network's weights go through extract, save
+and load into a network that acts, and the flat env steps with the CRBA
+solver, an armature and the velocity limits off."""
 import os
 import subprocess
 import sys
@@ -169,6 +173,50 @@ SCRIPT = textwrap.dedent(f"""
     st = StudentTeacher(48, 48, 12, teacher_hidden_dims=(128, 64, 32))
     st = load_teacher_from_actor_critic(st, read_checkpoint({CKPT!r})["params"])
     assert torch.equal(st.evaluate_teacher(torch.ones(3, 48)), net.act_inference(torch.ones(3, 48)))
+    import os
+    from extended_legged_gym_tpu_torch.utils.metrics import MetricsWriter
+    with tempfile.TemporaryDirectory() as d:
+        w = MetricsWriter(d, backend="tensorboard")
+        w.write(0, {{"a": 1.0}})
+        assert type(w.tb).__name__ == "SummaryWriter"
+        w.close()
+        assert any(f.startswith("events.out.tfevents") for f in os.listdir(d))
+    from extended_legged_gym_tpu_torch.utils import math as m
+    g = torch.Generator().manual_seed(0)
+    q = m.ypr_to_quat(torch.tensor([0.3]), torch.tensor([0.2]), torch.tensor([0.1]))
+    assert abs(float(m.quat_to_ypr(q)[0][0]) - 0.3) < 1e-5
+    assert float(m.quat_box_minus(q, m.quat_identity((1,))).norm()) > 0.3
+    assert float(m.torch_rand_sqrt_float(g, -1.0, 1.0, (8,)).abs().max()) <= 1.0
+    assert m.uniform(g, 0.0, 1.0, (2, 3)).shape == (2, 3)
+    assert m.spline_interp_matrix(4, 16, device="cpu").shape == (16, 4)
+    assert m.cubic_hermite_evaluate(torch.ones(4, 2), [0.0, 1.0]).shape == (2, 2)
+    assert m.linear_evaluate(torch.ones(2, 2), [0.5]).shape == (1, 2)
+    from torch import nn
+    from extended_legged_gym_tpu_torch.models import actuator_net as an
+
+    class Sea(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lstm = nn.LSTM(2, 4, num_layers=2, batch_first=True)
+            self.linear = nn.Linear(4, 1)
+            self.register_buffer("in_scale", torch.tensor([2.0, 0.25]))
+            self.register_buffer("out_scale", torch.tensor(20.0))
+
+        def forward(self, x):
+            return self.linear(self.lstm(x * self.in_scale)[0]) * self.out_scale
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.jit.save(torch.jit.trace(Sea(), torch.ones(1, 1, 2)), d + "/sea.pt")
+        an.save_weights_json(an.extract_weights(d + "/sea.pt"), d + "/sea.json")
+        sea = an.ActuatorNetLSTM(an.load_weights_json(d + "/sea.json", device="cpu"))
+        tau, _ = sea(torch.ones(3, 12, 2), sea.init_hidden((3, 12)))
+        assert tau.shape == (3, 12) and bool(torch.isfinite(tau).all())
+    cfg, _ = task_registry.get_cfgs("anymal_c_flat")
+    cfg.env.num_envs = 2
+    cfg.sim.solver, cfg.asset.armature, cfg.sim.enforce_dof_vel_limits = "crba", 0.05, False
+    env, _ = task_registry.make_env("anymal_c_flat", env_cfg=cfg, device="cpu")
+    s = env.step(env.reset_all(seed=0), torch.zeros(2, 12))
+    assert env.engine_step is not None and bool(torch.isfinite(s.obs).all())
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names), "modules; actor", tuple(sd["actor.0.weight"].shape),

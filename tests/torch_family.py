@@ -137,7 +137,7 @@ def jax_ctx(jenv, s):
 # fields of the JAX configs the port does not carry: the default joint
 # angles (both envs take the model JSON's, held below) and the runner's
 # staged-reward flag (the JAX runner never reads it)
-NOT_CARRIED = {"init_state.default_joint_angles", "runner.multi_stage_rewards"}
+NOT_CARRIED = set()
 
 
 def _flat(d, prefix=""):
