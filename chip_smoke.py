@@ -155,7 +155,8 @@ Phases (each prints its seconds; the run fails rather than overrun):
    check_sdf; every SDF gradient a unit vector; any other difference
    fails);
 24. the engine route: one mpc_step of elair_timberpile_nav at its
-   published width (4 mains x 128 samples, H = 16, mesh contacts): no
+   published width (4 mains x 128 samples, H = 16, mesh contacts;
+   ENGINE_DIFFUSE diffusion step, where the config has 2): no
    kernel launch, EngineEnvStep's substeps exactly the control steps x 4,
    every rollout reward and the main envs' states, observations, rewards
    and plan finite; its time, and the device's idle share over one rollout
@@ -215,16 +216,26 @@ Phases (each prints its seconds; the run fails rather than overrun):
 35. nccl: init_multi_host at world size 1 on a free local port, one
    all_reduce that returns its input, shard_batch and replicate of a tree on
    the card;
-36. weak scaling: scripts/weak_scaling's saturation sweep at 64, 512 and
+36. data-parallel PPO: (a) anymal_c_flat at the fleet's 4096 envs, one
+   iteration through OnPolicyRunner with phase 35's world-size-1 NCCL mesh
+   beside one without a mesh from the same state and draws (the empirical
+   normalizer on, so that its reduction runs): parameters, normalizer and
+   learning rate bit for bit, B1 exactly 24 in the mesh's iteration; (b)
+   scripts/dryrun_multichip in 2 processes on the card over gloo: its
+   committed-shape training pass (2 x 512 envs, [128, 64, 32], T=24; both
+   ranks' parameters, normalizer and learning rate bit for bit, B1 exactly
+   24 on each rank) and its toy sample-sharded optimize (within 1e-5 of the
+   one-process optimize of the same noise, the ranks bit for bit);
+37. weak scaling: scripts/weak_scaling's saturation sweep at 64, 512 and
    4096 samples (E=2, H=16: B1 at 128, 1024 and 8192 envs), B1's launches
    exactly 3 chains x 4 rollouts x 17 steps per size, one launch at 8192
    held to the plain step, then its weak-scaling row at world size 1 in
    phase 35's group (the same launch count), and the group destroyed;
-37. command options: anymal_c_flat with commands.heading_command and
+38. command options: anymal_c_flat with commands.heading_command and
    commands.curriculum on at 4096 envs, 24 control steps of the committed
    flat policy: exactly 24 B1 launches, column 2 the P law of column 3 and
    the base heading (zero where an env just reset), everything finite;
-38. sim options: anymal_c_flat at OPT_ENVS envs with asset.armature
+39. sim options: anymal_c_flat at OPT_ENVS envs with asset.armature
    OPT_ARMATURE and sim.enforce_dof_vel_limits off: the wrapper's
    velocity-limit and armature rows hold 500 and OPT_ARMATURE, B1 against
    the plain step with the same options from joint velocities of OPT_FAST
@@ -236,11 +247,12 @@ Phases (each prints its seconds; the run fails rather than overrun):
    finite; then one line naming the sinks the training paths'
    MetricsWriter wrote (the JSONL file always, TensorBoard's event file
    where tensorboard imports);
-39. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
+40. flat evaluation: scripts/eval_policy on the committed JAX checkpoint
    (16 envs, 50 + 100 steps): finite values, upright_mean below -0.9;
-40. timing: the MPC solve latency at 1 env and the rollout throughput at 16
+41. timing: the MPC solve latency at 1 env (TIMING_SOLVES solves) and the
+   rollout throughput at 16
    envs x 128 samples x H=64, timed with CUDA events;
-41. the kernel line (JSON) and the result line.  B1's entry counts its
+42. the kernel line (JSON) and the result line.  B1's entry counts its
    launches on the MPC path, the flat training path, the distillation path,
    the RL-extension paths and the ANYmal-C variants' stepping; B1's entry
    on the hexapod's tables its launches on the ElSpider path and the
@@ -256,9 +268,10 @@ Phases (each prints its seconds; the run fails rather than overrun):
    28), B2's anymal_c_nav_barrier's, the hexapod's B2 entry
    elspider_air_rough_raycast's; phases 29 and 31 add each launch to the
    entry of its tables (B1 on Cassie's a new entry, its times at 128); B1's
-   entry also counts phase 36's launches at 128 and 1024 and its
-   weak-scaling row's, phase 37's and phase 38's; play's launches (phase 33) and the
-   sweep's at 8192 (phase 36) are entries of their own, with their times at
+   entry also counts phase 36's launches (the mesh's iteration and each
+   gloo rank's training and sharded optimize), phase 37's at 128 and 1024
+   and its weak-scaling row's, phase 38's and phase 39's; play's launches
+   (phase 33) and the sweep's at 8192 (phase 37) are entries of their own, with their times at
    50 and 8192; the others carry their times
    at the training fleet's 4096.  An entry
    launched no time fails the run.
@@ -327,8 +340,8 @@ DISTILL_ENVS, DISTILL_ITERS = 256, 3
 # training iterations at the fleet
 ELSPIDER_B, ELSPIDER_ITERS = (16, 4096), 3
 # control steps of the hexapod's drift report (reported, not bounded)
-ELSPIDER_DRIFT_STEPS = 5
-SEA_ITERS, EXT_ITERS = 3, 2
+ELSPIDER_DRIFT_STEPS = 2
+SEA_ITERS, EXT_ITERS = 3, 1
 # Franka (the fixed-base regime): B at franka_batch_rollout's 8 main envs
 # and at franka_cfg's fleet of 1024 (also 8 main envs x 128 rollout
 # samples); training iterations at that fleet; the rollout batch's main
@@ -350,7 +363,7 @@ FAMILY_KERNELS = (("B1", "a1_flat"), ("B1", "go2_flat"), ("B2", "a1"), ("B2", "g
 # heights do; at HANG_TIGHT_Z, 14 mm, float32 rounding alone moves the plain step by
 # up to ONE_STEP_ATOL in a few envs, and track_float32 holds the kernel there)
 FAMILY_DRIFT_B, HANG_LOADED_Z, HANG_TIGHT_Z = 32, 0.175, 0.17
-FAMILY_DRIFT_STEPS = 5
+FAMILY_DRIFT_STEPS = 2
 FAMILY_TRAIN = ("a1", "go2_rough", "anymal_b", "cassie", "elspider_air_rough",
                 "anymal_c_rough_teacher", "anymal_c_student", "pose_go2_flat",
                 "foot_track_elspider_air_hang")
@@ -376,14 +389,14 @@ CURRICULUM_WAIVED = {"a1": "no episode ended",
 # new (regime, tables) pairs at the MPC tasks' rollout batch (4 mains x 128
 # samples) against plain; the two new training tasks at the fleet with their
 # route; training iterations
-CONFINED_RAY_ENVS, CONFINED_CHECK = 4096, 4096
+CONFINED_RAY_ENVS, CONFINED_CHECK = 4096, 1024
 RAY_ATOL, SDF_ATOL, SDF_DIR_ATOL, UNIT_ATOL = 1e-4, 1e-4, 1e-3, 1e-5
 NEW_KERNELS = (("B1", "anymal_c_percept"), ("B1", "elspider_air_nav"),
                ("B2", "anymal_c_nav_barrier"))
 NAV_B = 512
 # the engine route against the CPU: the first ENGINE_CPU_B of NAV_B standing
 # envs on elair_barrier_nav's arena
-ENGINE_CPU_B = 64
+ENGINE_CPU_B = 32
 NEW_TRAIN = (("anymal_c_flat_obstacles", "B1"), ("elspider_air_rough_raycast", "B2"))
 NEW_ITERS = 2
 # the polish modes' solves and the gradient checks: polish iterations per
@@ -405,7 +418,9 @@ NEW_ROLLOUT = (("anymal_c_batch_rollout", "B2"), ("anymal_c_batch_rollout_flat",
 ROLLOUT_S = 8
 POSE_TASKS = ("anymal_c_base_pose_adapt", "anymal_c_base_pose_ctrl", "el_mini_base_pose_adapt",
               "el_mini_base_pose_ctrl")
-POSE_STEPS = 3
+POSE_STEPS = 2
+ENGINE_DIFFUSE = 1                # elair_timberpile_nav's engine-route mpc_step: diffusion steps
+TIMING_SOLVES = 10                # phase 41's timed solves
 PAIRS_14 = (("B1", "cassie_traj_grad_sampling", 128), ("B1", "anymal_c_traj_grad_sampling", 1),
             ("B2", "elspider_air_dialmpc", 512))
 # this slice: play's run (the committed flat checkpoint through the
@@ -415,6 +430,7 @@ PAIRS_14 = (("B1", "cassie_traj_grad_sampling", 128), ("B1", "anymal_c_traj_grad
 # process; the command options' fleet and control steps
 PLAY_RUN, PLAY_B, PLAY_STEPS = "Aug21_12-38-39_r5_ft4", 50, 500
 EXPORT_ATOL = 1e-5
+DP_TIMEOUT_S = 120                # phase 36's two gloo processes
 SWEEP_S, SWEEP_REPS, WEAK_PER = (64, 512, 4096), 2, 16
 CMD_ENVS, CMD_STEPS = 4096, 24
 # the sim options' phase: the fleet with the armature and the velocity
@@ -676,7 +692,7 @@ def zero_launch_counts():
 
 
 # the sinks each training path's MetricsWriter wrote, read from its run
-# directory (phase 38 prints them)
+# directory (phase 39 prints them)
 SINKS_SEEN = set()
 
 
@@ -1681,9 +1697,10 @@ def profiled(fn):
     return out, wall, bench_mpc.device_split(prof, 1)["device_busy_ms"]
 
 
-def mpc_cycle(dev, task, route, num_envs=4, profile=True):
+def mpc_cycle(dev, task, route, num_envs=4, profile=True, n_diffuse=None):
     """One mpc_step of ``task`` at ``num_envs`` main envs (default 4: the
-    nav tasks' published width, 4 mains x 128 samples, H = 16), timed.
+    nav tasks' published width, 4 mains x 128 samples, H = 16), timed, with
+    ``n_diffuse`` diffusion steps (default: the config's).
     ``route`` "engine" must advance ``EngineEnvStep.engine_substeps`` by
     exactly (control steps) x decimation and launch no kernel; a kernel
     route exactly one launch per control step (the rollout batches' and the
@@ -1713,7 +1730,7 @@ def mpc_cycle(dev, task, route, num_envs=4, profile=True):
     EngineEnvStep.engine_substeps = 0
     with torch.no_grad():
         t1 = time.perf_counter()
-        state, nodes, _ = env.mpc_step(state, nodes)
+        state, nodes, _ = env.mpc_step(state, nodes, n_diffuse=n_diffuse)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3
     counts = launch_counts()
@@ -1734,7 +1751,8 @@ def mpc_cycle(dev, task, route, num_envs=4, profile=True):
         idle = (f"; one rollout control step of {rs.phys.base_pos.shape[0]} envs profiled: "
                 f"{step_ms:.1f} ms, device busy {busy:.1f} ms, idle {1 - busy / step_ms:.1%}")
     log(f"{task} mpc_step (E={env.num_envs}, S={to.num_samples + 1}, H={to.horizon_samples}, "
-        f"{to.num_diffuse_steps} diffusion steps, polish {to.polish_iters}): {wall:.1f} ms; "
+        f"{n_diffuse or to.num_diffuse_steps} diffusion steps, polish {to.polish_iters}): "
+        f"{wall:.1f} ms; "
         f"{n_roll} rollout control steps ({counter.nonfinite} non-finite rollout rewards); "
         f"launches {counts}, engine substeps {engine} (want {want_engine}); rewards finite "
         f"{bool(torch.isfinite(state.rew).all())}" + idle)
@@ -2249,7 +2267,8 @@ def nccl_path(dev):
     """Phase 35: init_multi_host at world size 1 on a free local port (the
     nccl backend), one all_reduce that returns its input, shard_batch and
     replicate of a tree on the card.  Returns the mesh (the group stays up
-    for phase 36's weak-scaling row)."""
+    for phase 36's data-parallel iteration and phase 37's weak-scaling
+    row)."""
     import socket
 
     import torch
@@ -2281,8 +2300,58 @@ def nccl_path(dev):
     return mesh
 
 
+def dp_path(dev, mesh):
+    """Phase 36: data-parallel PPO (the module docstring).  Returns B1's
+    launches: the mesh's iteration, and each gloo rank's training and
+    sharded optimize."""
+    import torch
+
+    from extended_legged_gym_tpu_torch.scripts import dryrun_multichip as dr
+
+    t0 = time.perf_counter()
+    # (b)'s processes start first: they reach the card while (a) runs
+    procs = dr.launch(["--device", "cuda:0", "--backend", "gloo", "--passes", "train",
+                       "toy_mpc"], 2)
+    try:
+        plain, dp = (dr.training_runner(m, FLEET, 24, device=dev) for m in (None, mesh))
+        want = {k: (24 if k == "B1" else 0) for k in launch_counts()}
+        counts = []
+        for runner in (plain, dp):
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            metrics = runner.train_iteration()
+            torch.cuda.synchronize()
+            counts.append(launch_counts())
+        same = dr.digest(dr.runner_tensors(plain)) == dr.digest(dr.runner_tensors(dp))
+        log(f"dp (a): {FLEET} envs, one iteration with the world-size-1 nccl mesh beside one "
+            f"without: parameters, normalizer and learning rate "
+            f"{'bit for bit' if same else 'DIFFER'}; launches {counts[1]} (without the mesh "
+            f"{counts[0]}); loss {float(metrics['loss']):.5g}")
+        if not same:
+            fail("the world-size-1 mesh's iteration differs from the one without a mesh")
+        if counts != [want, want]:
+            fail(f"the dp iterations launched {counts}, not {want} each")
+        del plain, dp
+    except BaseException:
+        dr.stop(procs)
+        raise
+    outs = dr.collect(procs, DP_TIMEOUT_S)
+    res = {r["pass"]: r for r in dr.results_of(outs[0])}
+    train, mpc = res.get("train"), res.get("toy_mpc")
+    log(f"dp (b): 2 gloo processes on the card, {time.perf_counter() - t0:.1f} s from their "
+        f"start: {train}; {mpc}")
+    if train is None or mpc is None:
+        fail(f"the gloo ranks printed no result:\n{outs[0][-3000:]}")
+    if not (train["agree"] and train["finite"]) or train["launches"] != [24, 24]:
+        fail(f"the gloo ranks' training disagrees or launched B1 {train['launches']}, not 24 each")
+    if not (mpc["agree"] and mpc["max_abs_err"] <= mpc["tolerance"] and min(mpc["launches"]) > 0):
+        fail("the sample-sharded optimize disagrees across ranks or with the one-process one")
+    phase_done("data-parallel PPO", t0)
+    return counts[1]["B1"] + sum(train["launches"]) + sum(mpc["launches"])
+
+
 def sweep_path(dev, mesh, stats):
-    """Phase 36: scripts/weak_scaling's saturation sweep at SWEEP_S samples
+    """Phase 37: scripts/weak_scaling's saturation sweep at SWEEP_S samples
     (E=2, H=16: B1 at 2 x S), B1's launches exactly (1 + SWEEP_REPS) chains x
     4 rollouts x 17 control steps per size, one launch at the largest batch
     held to the plain step, then its weak-scaling row at world size 1
@@ -2324,7 +2393,7 @@ def sweep_path(dev, mesh, stats):
 
 
 def commands_path(dev, policy):
-    """Phase 37: anymal_c_flat with commands.heading_command and
+    """Phase 38: anymal_c_flat with commands.heading_command and
     commands.curriculum on at CMD_ENVS envs, stepped CMD_STEPS control steps
     by ``policy`` (play's, the committed flat checkpoint's): B1 exactly CMD_STEPS launches; column 2 of
     the commands the P law of column 3 and the base heading (zero for envs
@@ -2374,7 +2443,7 @@ def commands_path(dev, policy):
 
 
 def sim_options_path(dev, stats):
-    """Phase 38: ``sim.enforce_dof_vel_limits``, ``asset.armature`` and
+    """Phase 39: ``sim.enforce_dof_vel_limits``, ``asset.armature`` and
     ``sim.solver`` on the card (see the module docstring).  Records B1's
     times at OPT_ENVS in ``stats``; returns (B1 launches, largest difference
     from the plain step)."""
@@ -2692,7 +2761,7 @@ def main():
     # and training paths ----------------
     perception_path(dev)
     engine_vs_cpu(dev)
-    mpc_cycle(dev, "elair_timberpile_nav", "engine")
+    mpc_cycle(dev, "elair_timberpile_nav", "engine", n_diffuse=ENGINE_DIFFUSE)
     percept_launches, _ = mpc_cycle(dev, "anymal_c_percept", "B1")
     barrier_launches, _ = mpc_cycle(dev, "anymal_c_nav_barrier", "B2")
     mpc_cycle(dev, "anymal_c_plan_grad_sampling", "none")
@@ -2719,20 +2788,22 @@ def main():
     family_err[("B2", "elspider_air")] = max(family_err[("B2", "elspider_air")],
                                              pairs_err[("B2", "elspider_air", 512)])
 
-    # ---------------- 33-37. play, export, nccl, the saturation sweep, the command options
+    # ---------------- 33-38. play, export, nccl, data-parallel PPO, the saturation sweep, the
+    # command options
     play_stats, sweep_stats = {}, {}
     play_launches, play_err, played = play_path(dev, play_stats)
     export_path(dev, played)
     mesh = nccl_path(dev)
+    dp_launches = dp_path(dev, mesh)
     sweep_launches, other_sweep_launches, sweep_err = sweep_path(dev, mesh, sweep_stats)
     cmd_launches = commands_path(dev, played["runner"].get_inference_policy())
 
-    # ---------------- 38. sim options ----------------
+    # ---------------- 39. sim options ----------------
     opt_stats = {}
     opt_launches, opt_err = sim_options_path(dev, opt_stats)
     flat_err = max(flat_err, opt_err)
 
-    # ---------------- 39. flat evaluation ----------------
+    # ---------------- 40. flat evaluation ----------------
     t0 = time.perf_counter()
     res = evaluate("anymal_c_flat", FLAT_CKPT, CMD, envs=16, steps=100, warmup=50, device=dev)
     log(f"flat evaluation of the committed JAX checkpoint (16 envs, 50+100 steps): "
@@ -2745,9 +2816,9 @@ def main():
         fail(f"flat evaluation: robots did not stay upright (upright_mean {res['upright_mean']})")
     phase_done("flat evaluation", t0)
 
-    # ---------------- 40. timing ----------------
+    # ---------------- 41. timing ----------------
     t0 = time.perf_counter()
-    solves, _ = bench_mpc.solve_latency(dev, n_solves=15)
+    solves, _ = bench_mpc.solve_latency(dev, n_solves=TIMING_SOLVES)
     log(f"solve at E=1 (Nsample=127 Hsample=16 Hnode=4 Ndiffuse=2 polish=fd x2): "
         f"p50 {bench_mpc.percentile(solves, 50):.2f} ms, p90 {bench_mpc.percentile(solves, 90):.2f} ms "
         f"over {len(solves)} solves")
@@ -2755,7 +2826,7 @@ def main():
     log(f"rollout_batch E=16 S=128 H=64: {rb_ms:.1f} ms, {rps:.1f} rollouts/s")
     phase_done("timing", t0)
 
-    # ---------------- 41. result ----------------
+    # ---------------- 42. result ----------------
     src = "extended_legged_gym_tpu_torch/csrc/physics_step.cu"
     kernels = []
     replaces = "extended_legged_gym_tpu/ops/physics_kernel.py:447"
@@ -2768,7 +2839,8 @@ def main():
             ("flat_decimated_physics_step",
              flat_launches + train_launches + distill_launches + ext_launches
              + fam("B1", "anymal_c") + percept_launches + new_launches[("B1", "anymal_c")]
-             + polish_launches + other_sweep_launches + cmd_launches + opt_launches, flat_err,
+             + polish_launches + dp_launches + other_sweep_launches + cmd_launches
+             + opt_launches, flat_err,
              flat_stats[4096]),
             ("flat_decimated_physics_step_play_b50", play_launches, play_err,
              play_stats[PLAY_B]),

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import pmean
 from ..utils.tree import tree_map
 
 _ACTIVATIONS = {"elu": nn.ELU}
@@ -298,15 +299,27 @@ class RunningNorm:
         return cls(mean=torch.zeros(dim, device=device), var=torch.ones(dim, device=device),
                    count=torch.zeros((), device=device), until=until)
 
-    def update(self, batch: torch.Tensor) -> "RunningNorm":
+    def update(self, batch: torch.Tensor, mesh=None) -> "RunningNorm":
+        """Merge ``batch``'s rows into the statistics.  With a ``mesh``
+        (``parallel/mesh.py``; every rank passes a batch of the same size)
+        the rows are all ranks' batches, and every rank holds the same
+        result: the global mean is the ranks' mean of their means, the
+        global population variance their mean of ``var + (mean - global
+        mean)^2``, two ``all_reduce`` calls."""
         flat = batch.reshape(-1, batch.shape[-1])
         n = flat.shape[0]
+        # jnp.var is the population variance (ddof 0); torch.var defaults to ddof 1
+        batch_mean, batch_var = flat.mean(0), flat.var(0, correction=0)
+        if mesh is not None:
+            local_mean = batch_mean
+            batch_mean, = pmean([local_mean], mesh)
+            batch_var, = pmean([batch_var + torch.square(local_mean - batch_mean)], mesh)
+            n = n * mesh.size
         new_count = self.count + n
-        delta = flat.mean(0) - self.mean
+        delta = batch_mean - self.mean
         new_mean = self.mean + delta * (n / new_count)
         m_a = self.var * self.count
-        # jnp.var is the population variance (ddof 0); torch.var defaults to ddof 1
-        m_b = flat.var(0, correction=0) * n
+        m_b = batch_var * n
         new_var = (m_a + m_b + torch.square(delta) * self.count * n / new_count) / new_count
         do = self.count < self.until          # a device-side select: no host read
         return dataclasses.replace(self, mean=torch.where(do, new_mean, self.mean),
@@ -520,9 +533,12 @@ def load_flax_tree(module: nn.Module, tree: Dict) -> nn.Module:
     return module
 
 
-def read_checkpoint(path: str) -> dict:
+def read_checkpoint(path) -> dict:
     """The payload of a ``.pkl`` written by the JAX runner or the port's, with
-    the JAX package's and JAX's objects loaded as stubs."""
+    the JAX package's and JAX's objects loaded as stubs.  ``path`` may also
+    be a binary file object."""
+    if hasattr(path, "read"):
+        return _CheckpointUnpickler(path).load()
     with open(path, "rb") as f:
         return _CheckpointUnpickler(f).load()
 

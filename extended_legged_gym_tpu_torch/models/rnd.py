@@ -59,17 +59,19 @@ class RandomNetworkDistillation(nn.Module):
         return w
 
     @torch.no_grad()
-    def intrinsic_reward(self, rnd_obs: torch.Tensor) -> torch.Tensor:
+    def intrinsic_reward(self, rnd_obs: torch.Tensor, mesh=None) -> torch.Tensor:
         """Per-env intrinsic reward ``[B]``.  Updates the state normalizer with
         ``rnd_obs`` before normalizing it, the reward normalizer with the raw
-        distances before normalizing them, and advances ``step``."""
+        distances before normalizing them, and advances ``step``.  With a
+        ``mesh`` both normalizers take every rank's rows
+        (``RunningNorm.update``), so they stay equal on every rank."""
         x = rnd_obs
         if self.state_norm is not None:
-            self.state_norm = self.state_norm.update(x)
+            self.state_norm = self.state_norm.update(x, mesh)
             x = self.state_norm.normalize(x)
         rew = torch.linalg.norm(self.target(x) - self.predictor(x), dim=-1)
         if self.reward_norm is not None:
-            self.reward_norm = self.reward_norm.update(rew[:, None])
+            self.reward_norm = self.reward_norm.update(rew[:, None], mesh)
             rew = self.reward_norm.normalize(rew[:, None])[:, 0]
         rew = rew * self.weight_at(self.step)
         self.step = self.step + 1

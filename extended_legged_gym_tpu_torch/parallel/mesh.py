@@ -11,12 +11,19 @@ whose sharded axis has the batch size, :func:`replicate` broadcasts every
 tensor from rank 0 and :func:`gather_batch` all-gathers slices back along
 the axis.  Without a process group the mesh is one process and the helpers
 only move tensors to its device.
+
+The reductions of data-parallel training, JAX's ``pmean`` / ``psum`` over
+the mesh axis inside ``shard_map``: :func:`pmean` and :func:`all_sum` reduce
+a list of tensors with one ``all_reduce`` of one flat buffer.  They run the
+collective whenever a process group is up, a world of one included, and
+return their input unchanged only on a one-process mesh without a group.  A
+collective that fails raises.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -95,3 +102,50 @@ def gather_batch(x: torch.Tensor, mesh: Mesh, axis: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x.contiguous())
     return torch.cat(parts, dim=axis)
+
+
+def _group_up(mesh: Mesh) -> bool:
+    """Whether the reductions run a collective: a process group is up (over
+    the whole world, which must be the mesh)."""
+    if not dist.is_initialized():
+        if mesh.size != 1:
+            raise RuntimeError(f"a mesh of {mesh.size} processes without a process group")
+        return False
+    if dist.get_world_size() != mesh.size:
+        raise RuntimeError(f"a mesh of {mesh.size} processes in a world of "
+                           f"{dist.get_world_size()}")
+    return True
+
+
+def _all_reduce(tensors: Sequence[torch.Tensor], mesh: Mesh, divide: bool) -> List[torch.Tensor]:
+    tensors = list(tensors)
+    if not tensors or not _group_up(mesh):
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    if divide:
+        flat = flat / mesh.size
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [p.view(t.shape).to(t.dtype) for p, t in zip(parts, tensors)]
+
+
+def pmean(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """The mean over the mesh's processes of each tensor (JAX's
+    ``lax.pmean``): one ``all_reduce`` of their concatenation, divided by
+    the world size."""
+    return _all_reduce(tensors, mesh, divide=True)
+
+
+def all_sum(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """The sum over the mesh's processes of each tensor (``lax.psum``), in
+    one ``all_reduce``."""
+    return _all_reduce(tensors, mesh, divide=False)
+
+
+def broadcast_object(obj: Any, mesh: Mesh) -> Any:
+    """Rank 0's picklable ``obj`` on every rank (the others' is ignored)."""
+    if not _group_up(mesh):
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

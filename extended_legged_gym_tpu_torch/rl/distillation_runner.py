@@ -10,6 +10,8 @@ privileged observation where it has one, else the observation.  The env
 state and the carry run on
 across iterations; the episode metrics start empty each iteration.  Every
 physics step is one launch of the env's fused step (B1 on flat ground).
+It runs in one process: the JAX package shards no distillation, so it has
+no data-parallel form (``OnPolicyRunner`` has one).
 """
 from __future__ import annotations
 

@@ -8,6 +8,17 @@ stay device tensors until the caller reads them.  ``ppo_update`` takes the
 symmetry-augmentation term (``make_mirror_fns``); ``ppo_update_recurrent``
 replays each minibatch of envs through the recurrent policy over the whole
 window, as the JAX function of the same name does.
+
+Data parallelism: with a ``mesh`` (``parallel/mesh.py``: one process per
+card, each holding its shard of the envs) the updates reduce what the JAX
+functions reduce under ``shard_map`` with ``axis_name`` (the reference's
+NCCL all-reduce), in the same order: the mean of the ranks' advantage means
+and population stds before normalisation, and per minibatch the mean of the
+ranks' gradients and KL means before the adaptive-KL rate and the step.  The
+loss metrics stay per rank.  One difference on purpose: the non-finite skip
+is ANDed over the ranks (JAX ANDs the local loss with the reduced
+gradients, so a shard whose loss alone is non-finite would step apart from
+the others); here the ranks' parameters never part.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..models.networks import ActorCritic, gaussian_entropy, gaussian_log_prob, mask_carry
+from ..parallel.mesh import Mesh, pmean
 from ..utils.tree import tree_map
 
 
@@ -176,12 +188,14 @@ def _ppo_loss(cfg: PPOConfig, mean, std, value, mb: Dict[str, torch.Tensor]):
 
 
 def _epochs(cfg: PPOConfig, optimizer: Adam, learning_rate: torch.Tensor, n: int, dev,
-            minibatch_loss: Callable, perms, generator):
+            minibatch_loss: Callable, perms, generator, mesh: Optional[Mesh] = None):
     """Epochs x minibatches of guarded Adam steps: each epoch permutes ``n``
     items (``perms[e]`` where given, else ``torch.randperm`` from
     ``generator``) into ``num_mini_batches`` index sets; ``minibatch_loss``
-    maps one to ``_ppo_loss``'s outputs.  Returns the new learning rate and
-    the mean metrics (device scalars)."""
+    maps one to ``_ppo_loss``'s outputs.  With a ``mesh`` each step takes
+    the ranks' mean gradient and KL, and steps only where every rank's loss
+    and the mean gradient are finite (one ``all_reduce`` per step).  Returns
+    the new learning rate and the mean metrics (device scalars)."""
     size = n // cfg.num_mini_batches
     lr = learning_rate
     rows: List[torch.Tensor] = []
@@ -191,16 +205,21 @@ def _epochs(cfg: PPOConfig, optimizer: Adam, learning_rate: torch.Tensor, n: int
         idx = perm[: size * cfg.num_mini_batches].reshape(cfg.num_mini_batches, size)
         for m in range(cfg.num_mini_batches):
             loss, v_loss, surr, ent, kl = minibatch_loss(idx[m])
-            grads = torch.autograd.grad(loss, optimizer.params)
+            grads = torch.cat([g.reshape(-1) for g in
+                               torch.autograd.grad(loss, optimizer.params)])
+            ok = torch.isfinite(loss.detach())
+            if mesh is not None:
+                # the ranks' loss checks ride in the gradients' buffer: their
+                # mean is 1 exactly when every rank's loss is finite
+                grads, kl, ok = pmean([grads, kl, ok.to(kl.dtype)], mesh)
+                ok = ok == 1.0
             if cfg.schedule == "adaptive":
                 # the minibatch's own KL moves the rate before its step
                 lr = torch.where(kl > cfg.desired_kl * 2.0, torch.clamp(lr / 1.5, min=1e-5), lr)
                 lr = torch.where((kl < cfg.desired_kl / 2.0) & (kl > 0.0),
                                  torch.clamp(lr * 1.5, max=1e-2), lr)
-            ok = torch.isfinite(loss.detach())
-            for g in grads:
-                ok = ok & torch.isfinite(g).all()
-            optimizer.step(grads, lr, ok)
+            ok = ok & torch.isfinite(grads).all()
+            optimizer.step([grads], lr, ok)
             rows.append(torch.stack([loss.detach(), v_loss, surr, ent, kl,
                                      1.0 - ok.to(torch.float32)]))
     m = torch.stack(rows)
@@ -209,25 +228,31 @@ def _epochs(cfg: PPOConfig, optimizer: Adam, learning_rate: torch.Tensor, n: int
                     kl=mean[4], nonfinite_skips=m[:, 5].sum(), learning_rate=lr)
 
 
-def _normalized(advantages: torch.Tensor) -> torch.Tensor:
-    """Whole-batch normalisation; jnp.std is the population std (ddof 0)."""
-    return (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+def _normalized(advantages: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Whole-batch normalisation; jnp.std is the population std (ddof 0).
+    With a ``mesh``, by the mean over the ranks of their means and stds."""
+    mean, std = advantages.mean(), advantages.std(correction=0)
+    if mesh is not None:
+        mean, std = pmean([mean, std], mesh)
+    return (advantages - mean) / (std + 1e-8)
 
 
 def ppo_update(net: ActorCritic, cfg: PPOConfig, optimizer: Adam, batch: Transition,
                advantages: torch.Tensor, returns: torch.Tensor, learning_rate: torch.Tensor,
                perms: Optional[Sequence[torch.Tensor]] = None,
                generator: Optional[torch.Generator] = None,
-               symmetry: Optional[Tuple[Callable, Callable, float]] = None
+               symmetry: Optional[Tuple[Callable, Callable, float]] = None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Epochs x shuffled minibatches over the ``[T, B]`` batch.  Each epoch's
     permutation of the ``T * B`` samples is ``perms[e]`` where given (the
     tests inject the JAX package's), else ``torch.randperm`` from
     ``generator``.  ``symmetry`` = (mirror_obs, mirror_act, coef) adds
     ``coef`` times the mean squared difference between the actor's mean on
-    mirrored observations and the mirrored mean (held constant).  Returns the
-    new learning rate and the metrics (device scalars), as the JAX
-    ``ppo_update`` does."""
+    mirrored observations and the mirrored mean (held constant).  ``mesh``
+    makes it the data-parallel update over the ranks' batches (the JAX
+    ``axis_name``; the module docstring).  Returns the new learning rate
+    and the metrics (device scalars), as the JAX ``ppo_update`` does."""
     T, B = advantages.shape
     N = T * B
 
@@ -238,7 +263,7 @@ def ppo_update(net: ActorCritic, cfg: PPOConfig, optimizer: Adam, batch: Transit
                 actions=flat(batch.actions), values=flat(batch.values),
                 log_probs=flat(batch.log_probs), mu=flat(batch.mu),
                 sigma=flat(batch.sigma[:, None, :].expand(batch.mu.shape)),
-                advantages=flat(_normalized(advantages)), returns=flat(returns))
+                advantages=flat(_normalized(advantages, mesh)), returns=flat(returns))
 
     def minibatch_loss(idx):
         mb = {k: v[idx] for k, v in data.items()}
@@ -254,27 +279,28 @@ def ppo_update(net: ActorCritic, cfg: PPOConfig, optimizer: Adam, batch: Transit
         return (out[0] + coef * sym_loss, *out[1:])
 
     return _epochs(cfg, optimizer, learning_rate, N, advantages.device, minibatch_loss, perms,
-                   generator)
+                   generator, mesh)
 
 
 def ppo_update_recurrent(net, cfg: PPOConfig, optimizer: Adam, batch: Transition, carries0,
                          advantages: torch.Tensor, returns: torch.Tensor,
                          learning_rate: torch.Tensor,
                          perms: Optional[Sequence[torch.Tensor]] = None,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         mesh: Optional[Mesh] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """PPO for a recurrent policy (``ActorCriticRecurrent``): minibatches
     split the env axis (each epoch permutes the ``B`` envs, ``perms[e]``
     where given), and each minibatch's loss replays its envs' whole
     ``T``-step window from the window-start carries ``carries0`` = (actor,
     critic), zeroing a carry after a step that ended its episode, as the
-    collection did.  The learning-rate schedule, clipping, guard and metrics
-    are ``ppo_update``'s."""
+    collection did.  The learning-rate schedule, clipping, guard, metrics
+    and ``mesh`` are ``ppo_update``'s."""
     T, B = advantages.shape
     data = dict(obs=batch.obs, critic_obs=batch.critic_obs, actions=batch.actions,
                 values=batch.values, log_probs=batch.log_probs, mu=batch.mu,
                 sigma=batch.sigma[:, None, :].expand(batch.mu.shape),
-                advantages=_normalized(advantages), returns=returns,
+                advantages=_normalized(advantages, mesh), returns=returns,
                 dones=batch.dones.to(torch.float32))
 
     def minibatch_loss(idx):
@@ -290,4 +316,4 @@ def ppo_update_recurrent(net, cfg: PPOConfig, optimizer: Adam, batch: Transition
         return _ppo_loss(cfg, torch.stack(means), std, torch.stack(values), mb)
 
     return _epochs(cfg, optimizer, learning_rate, B, advantages.device, minibatch_loss, perms,
-                   generator)
+                   generator, mesh)

@@ -38,9 +38,26 @@ checkpoint's optax state is not carried over, so Adam restarts).
 ``warmstart_from_reference`` starts the MLP policy from a reference rsl_rl
 ``.pt`` (bridged to the engine's DOF order in weight space, Adam restarted);
 ``export_policy`` writes the deployment files (``utils/export.py``).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``; the JAX runner shards the
+env axis over its mesh, the reference runs one torchrun process per GPU):
+each process holds its shard of the envs and collects them alone.  At
+construction and after ``load`` / ``warmstart_from_reference`` every rank
+takes rank 0's parameters, Adam state, learning rate, normalizer(s), reward
+stage and RND networks (rsl_rl's ``broadcast_parameters``).  An iteration
+updates the normalizers with every rank's rows, runs the data-parallel PPO
+update (``ppo_update(..., mesh=)``), takes the ranks' mean RND predictor
+gradient, and sums the episode metrics and averages ``mean_step_reward``
+and ``terrain_level`` over the ranks before the means, so the staged
+reward advances alike everywhere; the ranks stay bit for bit equal.  The
+action noise and minibatch permutations draw from a generator seeded with
+``seed + rank``.  Only rank 0 logs, writes metrics and saves.  The
+distillation and terrain-estimator runners stay single-process: the JAX
+package shards neither.
 """
 from __future__ import annotations
 
+import io
 import os
 import time
 from typing import Dict, List, Optional, Sequence
@@ -55,6 +72,7 @@ from ..models.networks import (ActorCritic, ActorCriticRecurrent, RecurrentInfer
                                norm_from_checkpoint, params_from_jax, params_to_jax,
                                read_checkpoint)
 from ..models.rnd import RandomNetworkDistillation
+from ..parallel.mesh import Mesh, all_sum, broadcast_object, pmean, replicate
 from ..utils.metrics import MetricsWriter
 from .ppo import (Adam, PPOConfig, Transition, compute_gae, make_mirror_fns, ppo_update,
                   ppo_update_recurrent)
@@ -62,7 +80,8 @@ from .ppo import (Adam, PPOConfig, Transition, compute_gae, make_mirror_fns, ppo
 
 class OnPolicyRunner:
     def __init__(self, env: LeggedRobot, train_cfg: LeggedRobotCfgPPO,
-                 log_dir: Optional[str] = None, seed: Optional[int] = None):
+                 log_dir: Optional[str] = None, seed: Optional[int] = None,
+                 mesh: Optional[Mesh] = None):
         alg, pol, run = train_cfg.algorithm, train_cfg.policy, train_cfg.runner
         refuse_unread(train_cfg, UNREAD_TRAIN_FIELDS)
         if run.policy_class_name not in ("ActorCritic", "ActorCriticRecurrent"):
@@ -74,9 +93,12 @@ class OnPolicyRunner:
         if self.recurrent and pol.rnn_num_layers != 1:
             raise ValueError(f"rnn_num_layers {pol.rnn_num_layers}: the recurrent policy's "
                              "Memory has one layer")
-        self.env, self.cfg, self.log_dir = env, train_cfg, log_dir
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        self.env, self.cfg = env, train_cfg
+        self.log_dir = log_dir if self.is_main else None
         self.device = env.device
-        self.writer = MetricsWriter(log_dir) if log_dir else None
+        self.writer = MetricsWriter(log_dir) if self.log_dir else None
         seed = train_cfg.seed if seed is None else seed
         self.ppo_cfg = PPOConfig(
             clip_param=alg.clip_param, num_learning_epochs=alg.num_learning_epochs,
@@ -121,11 +143,42 @@ class OnPolicyRunner:
             self.rnd_learning_rate = torch.tensor(rc.get("learning_rate", 1e-3),
                                                   device=self.device)
         self.learning_rate = torch.tensor(alg.learning_rate, device=self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed + (mesh.rank if mesh is not None else 0))
         self.obs_norm = (RunningNorm.create(env.num_obs, device=self.device)
                          if run.empirical_normalization else None)
         self.env_state: EnvState = env.reset_all()
         self.iteration = 0
+        self._replicate()
+
+    def _replicate(self):
+        """Every rank takes rank 0's parameters, Adam state, learning rate,
+        normalizer(s), reward stage and RND state (no-op without a mesh)."""
+        if self.mesh is None:
+            return
+        opt = self.optimizer
+        tree = dict(params=[p.detach() for p in self.network.parameters()],
+                    adam=[opt.mu, opt.nu, opt.count], lr=self.learning_rate,
+                    norm=self.obs_norm, stage=self.env_state.reward_stage)
+        if self.rnd is not None:
+            r, ro = self.rnd, self.rnd_optimizer
+            tree["rnd"] = dict(params=[p.detach() for p in r.parameters()],
+                               adam=[ro.mu, ro.nu, ro.count],
+                               norms=[r.state_norm, r.reward_norm], step=r.step)
+        got = replicate(tree, self.mesh)
+        with torch.no_grad():
+            for p, v in zip(self.network.parameters(), got["params"]):
+                p.copy_(v)
+        opt.mu, opt.nu, opt.count = got["adam"]
+        self.learning_rate, self.obs_norm = got["lr"], got["norm"]
+        self.env_state = self.env_state.replace(reward_stage=got["stage"])
+        if self.rnd is not None:
+            rg = got["rnd"]
+            with torch.no_grad():
+                for p, v in zip(self.rnd.parameters(), rg["params"]):
+                    p.copy_(v)
+            self.rnd_optimizer.mu, self.rnd_optimizer.nu, self.rnd_optimizer.count = rg["adam"]
+            (self.rnd.state_norm, self.rnd.reward_norm), self.rnd.step = rg["norms"], rg["step"]
 
     # ------------------------------------------------------------------
     def _policy_io(self, es: EnvState, obs_norm: Optional[RunningNorm]):
@@ -164,7 +217,7 @@ class OnPolicyRunner:
             # step; dones is reset_buf, which includes the time-outs
             rewards = es.rew + gamma * value * es.time_out_buf
             if self.rnd is not None:
-                rewards = rewards + self.rnd.intrinsic_reward(es.obs)
+                rewards = rewards + self.rnd.intrinsic_reward(es.obs, self.mesh)
             for k, v in (("obs", obs), ("critic_obs", critic_obs), ("actions", actions),
                          ("rewards", rewards), ("dones", es.reset_buf), ("values", value),
                          ("log_probs", log_prob), ("mu", mean), ("sigma", std)):
@@ -187,7 +240,7 @@ class OnPolicyRunner:
         if obs_norm is not None:
             # as in the JAX runner: updated with the (already normalized)
             # observations the policy saw
-            obs_norm = obs_norm.update(batch.obs)
+            obs_norm = obs_norm.update(batch.obs, self.mesh)
         with torch.no_grad():
             obs, critic_obs = self._policy_io(es, self.obs_norm)
             last_value = self._forward(obs, critic_obs, carries)[2]
@@ -200,15 +253,17 @@ class OnPolicyRunner:
         if self.recurrent:
             self.learning_rate, metrics = ppo_update_recurrent(
                 self.network, cfg, self.optimizer, batch, carries0, advantages, returns,
-                self.learning_rate, perms=perms, generator=self.generator)
+                self.learning_rate, perms=perms, generator=self.generator, mesh=self.mesh)
         else:
             self.learning_rate, metrics = ppo_update(
                 self.network, cfg, self.optimizer, batch, advantages, returns,
                 self.learning_rate, perms=perms, generator=self.generator,
-                symmetry=self.symmetry)
+                symmetry=self.symmetry, mesh=self.mesh)
         if self.rnd is not None:
             loss = self.rnd.predictor_loss(batch.obs.reshape(-1, batch.obs.shape[-1]))
             grads = torch.autograd.grad(loss, self.rnd_optimizer.params)
+            if self.mesh is not None:
+                grads = pmean(grads, self.mesh)
             self.rnd_optimizer.step(grads, self.rnd_learning_rate,
                                     torch.ones((), dtype=torch.bool, device=self.device))
             metrics["rnd_loss"] = loss.detach()
@@ -217,14 +272,20 @@ class OnPolicyRunner:
         self.last_times = dict(collection_s=t1 - t0, update_s=time.perf_counter() - t1)
 
         em = es.episode_metrics
+        means = dict(mean_step_reward=batch.rewards.mean())
+        if env.custom_origins:
+            means["terrain_level"] = es.terrain_levels.to(torch.float32).mean()
+        if self.mesh is not None:
+            # the episodes of every rank, and the means over the ranks' shards
+            em = dict(zip(em, all_sum(list(em.values()), self.mesh)))
+            means = dict(zip(means, pmean(list(means.values()), self.mesh)))
         n_ep = torch.clamp(em["count"], min=1.0)
         metrics["mean_reward"] = em["return_sum"] / n_ep
         metrics["mean_episode_length"] = em["length_sum"] / n_ep
         metrics["episodes_done"] = em["count"]
-        metrics["mean_step_reward"] = batch.rewards.mean()
+        metrics["mean_step_reward"] = means.pop("mean_step_reward")
         metrics["action_std"] = action_std
-        if env.custom_origins:
-            metrics["terrain_level"] = es.terrain_levels.to(torch.float32).mean()
+        metrics.update(means)
         for k, v in em.items():
             if k.startswith("rew_"):
                 metrics["episode/" + k] = v / n_ep
@@ -245,7 +306,9 @@ class OnPolicyRunner:
     def learn(self, num_iterations: int, log_interval: int = 10,
               save_interval: Optional[int] = None) -> Dict[str, float]:
         save_interval = save_interval or self.cfg.runner.save_interval
-        steps_per_iter = self.num_steps_per_env * self.env.num_envs
+        # env steps of every rank
+        steps_per_iter = (self.num_steps_per_env * self.env.num_envs
+                          * (self.mesh.size if self.mesh is not None else 1))
         last: Dict[str, float] = {}
         t_start = time.time()
         for it in range(num_iterations):
@@ -258,7 +321,7 @@ class OnPolicyRunner:
             last.update(self.last_times, fps=steps_per_iter / dt)
             if self.writer:
                 self.writer.write(self.iteration, last)
-            if it % log_interval == 0 or it == num_iterations - 1:
+            if self.is_main and (it % log_interval == 0 or it == num_iterations - 1):
                 print(f"it {self.iteration:5d} | rew/ep {last['mean_reward']:8.3f} | "
                       f"len {last['mean_episode_length']:6.1f} | kl {last['kl']:.4f} | "
                       f"lr {last['learning_rate']:.1e} | fps {last['fps']:,.0f}", flush=True)
@@ -289,8 +352,19 @@ class OnPolicyRunner:
         with open(path, "wb") as f:
             dump_checkpoint(payload, f)
 
-    def load(self, path: str, load_optimizer: bool = True) -> dict:
-        payload = read_checkpoint(path)
+    def load(self, path: Optional[str], load_optimizer: bool = True) -> dict:
+        """Read a checkpoint of either runner (the module docstring).  With a
+        mesh every rank calls it: rank 0 reads ``path`` (the others' is not
+        read) and broadcasts the file's bytes, every rank applies them, and
+        rank 0's state is replicated."""
+        if self.mesh is None:
+            payload = read_checkpoint(path)
+        else:
+            data = None
+            if self.is_main:
+                with open(path, "rb") as f:
+                    data = f.read()
+            payload = read_checkpoint(io.BytesIO(broadcast_object(data, self.mesh)))
         with torch.no_grad():
             for name, t in params_from_jax(payload["params"]).items():
                 self.network.get_parameter(name).copy_(t)
@@ -314,6 +388,7 @@ class OnPolicyRunner:
             self.env_state = self.env_state.replace(
                 reward_stage=torch.tensor(int(payload["reward_stage"]), device=self.device))
         self.iteration = int(payload.get("iteration", 0))
+        self._replicate()
         return payload
 
     def get_inference_policy(self, batch_size: Optional[int] = None):
@@ -337,18 +412,21 @@ class OnPolicyRunner:
         """Start the policy from a reference rsl_rl ``.pt`` checkpoint,
         re-expressed in the engine's DOF order in weight space
         (``rl/torch_compat.permute_params_to_our_dof_order``), with a fresh
-        Adam state."""
+        Adam state.  With a mesh every rank calls it; rank 0 reads the file
+        and the others take its parameters."""
         from .torch_compat import (load_rsl_rl_checkpoint, permute_params_to_our_dof_order,
                                    rsl_rl_state_dict)
 
         if self.recurrent:
             raise ValueError("a reference .pt checkpoint holds an MLP policy")
-        sd, _ = load_rsl_rl_checkpoint(pt_path)
-        state = permute_params_to_our_dof_order(rsl_rl_state_dict(sd, self.network),
-                                                self.env.model.joint_names)
-        self.network.load_state_dict({k: v.to(self.device) for k, v in state.items()})
+        if self.is_main:
+            sd, _ = load_rsl_rl_checkpoint(pt_path)
+            state = permute_params_to_our_dof_order(rsl_rl_state_dict(sd, self.network),
+                                                    self.env.model.joint_names)
+            self.network.load_state_dict({k: v.to(self.device) for k, v in state.items()})
+            print(f"Warm-started PPO params from reference checkpoint: {pt_path}", flush=True)
         self.optimizer = Adam(self.network.parameters(), self.cfg.algorithm.max_grad_norm)
-        print(f"Warm-started PPO params from reference checkpoint: {pt_path}", flush=True)
+        self._replicate()
 
     def export_policy(self, path: str) -> List[str]:
         """Write the deployment files into ``path`` and return them: the MLP

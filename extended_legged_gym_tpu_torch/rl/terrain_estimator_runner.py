@@ -14,7 +14,9 @@ every iteration, as does the carry.  ``learn`` resets the env at each call,
 as the JAX runner's does.
 
 Checkpoints are the JAX runner's pickle, ``{"params": <flax tree of numpy
-arrays>}``, read and written both ways.
+arrays>}``, read and written both ways.  It runs in one process: the JAX
+package shards no estimator training, so it has no data-parallel form
+(``OnPolicyRunner`` has one).
 """
 from __future__ import annotations
 

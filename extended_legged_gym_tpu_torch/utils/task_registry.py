@@ -29,9 +29,13 @@ class TaskRegistry:
         return env_cfg, train_cfg
 
     def make_env(self, name: str, args: Optional[argparse.Namespace] = None,
-                 env_cfg: Optional[LeggedRobotCfg] = None, device=None):
+                 env_cfg: Optional[LeggedRobotCfg] = None, device=None, mesh=None):
         """The task's env on ``device`` (default: ``args.device``, else
-        ``"cuda"``), its config updated from ``args``."""
+        ``"cuda"``), its config updated from ``args``.  With a ``mesh``
+        (data-parallel training) ``num_envs`` stays the global count, as in
+        the JAX package: this rank's env holds ``num_envs / world`` of them
+        (a count that does not divide is refused), on the mesh's device, its
+        seed offset by the rank."""
         if name not in self.task_classes:
             raise ValueError(f"Task {name} not registered. Available: {list(self.task_classes)}")
         if env_cfg is None:
@@ -39,28 +43,41 @@ class TaskRegistry:
         if args is not None:
             update_cfg_from_args(env_cfg, None, args)
         device = device or getattr(args, "device", None) or "cuda"
+        if mesh is not None:
+            if env_cfg.env.num_envs % mesh.size:
+                raise ValueError(f"num_envs {env_cfg.env.num_envs} does not divide over "
+                                 f"{mesh.size} processes")
+            env_cfg.env.num_envs //= mesh.size
+            env_cfg.seed += mesh.rank
+            device = mesh.device
         return self.task_classes[name](env_cfg, device=device), env_cfg
 
     def make_alg_runner(self, env, name: Optional[str] = None,
                         args: Optional[argparse.Namespace] = None,
-                        train_cfg: Optional[LeggedRobotCfgPPO] = None, log_root: str = "logs"):
+                        train_cfg: Optional[LeggedRobotCfgPPO] = None, log_root: str = "logs",
+                        mesh=None):
         """A runner logging to ``log_root/<experiment>/<date>_<run_name>``,
         resumed from the latest (or the named) run's checkpoint on
-        ``--resume``."""
+        ``--resume``.  With a ``mesh`` it is data-parallel: only rank 0
+        logs, and on ``--resume`` rank 0 finds and reads the checkpoint and
+        the others take its state."""
         from ..rl.runner import OnPolicyRunner
 
         if train_cfg is None:
             _, train_cfg = self.get_cfgs(name)
         if args is not None:
             update_cfg_from_args(None, train_cfg, args)
+        is_main = mesh is None or mesh.rank == 0
         run_name = time.strftime("%b%d_%H-%M-%S") + "_" + train_cfg.runner.run_name
         log_dir = os.path.join(log_root, train_cfg.runner.experiment_name, run_name)
-        runner = OnPolicyRunner(env, train_cfg, log_dir=log_dir)
+        runner = OnPolicyRunner(env, train_cfg, log_dir=log_dir if is_main else None, mesh=mesh)
         if train_cfg.runner.resume:
-            path = get_load_path(os.path.join(log_root, train_cfg.runner.experiment_name),
-                                 load_run=train_cfg.runner.load_run,
-                                 checkpoint=train_cfg.runner.checkpoint)
-            print(f"Loading model from: {path}", flush=True)
+            path = None
+            if is_main:
+                path = get_load_path(os.path.join(log_root, train_cfg.runner.experiment_name),
+                                     load_run=train_cfg.runner.load_run,
+                                     checkpoint=train_cfg.runner.checkpoint)
+                print(f"Loading model from: {path}", flush=True)
             runner.load(path)
         return runner, train_cfg
 

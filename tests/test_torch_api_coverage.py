@@ -7,6 +7,11 @@
   stands in ``RENAMED`` (the port's name for it) or in ``DELIBERATE`` (why
   the port has no counterpart).  The JAX side is read from the source, the
   port side from the imported module.
+* Parameters: every public function and method the two packages share
+  takes the JAX parameters by name, or its entry in ``PARAM_RENAMED`` (the
+  port's name) or ``PARAMS`` (why the port has no such parameter) says
+  otherwise.  JAX's PRNG ``key`` is excused everywhere (``KEY``), and JAX's
+  ``*args`` / ``**kw`` are not compared.
 * Files: every JAX ``scripts/*.py`` has a port script of the same name.
 * Config fields: every config class of ``envs/legged_robot_config.py`` has
   the JAX class's fields, with its defaults, and no others.  Each robot's
@@ -17,6 +22,7 @@
 import ast
 import dataclasses
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -81,6 +87,59 @@ DELIBERATE = {
                                                      "in __init__",
     "rl/distillation.py::Distillation.init": "flax parameter and optimizer initialisation; "
                                              "Distillation.__init__ builds them",
+}
+
+
+KEY = "JAX's PRNG key: the port draws from a torch.Generator (or a seed) and takes injected draws"
+_FUNCTIONAL = ("JAX's functional state, passed in and returned; the port's module and "
+               "optimizer hold it")
+_INTERPRET = "Pallas's interpreter; the port runs the kernel's plain version on a CPU tensor"
+_ILQR = "passed on as **kw to ilqr_solve_batched, whose parameter it is"
+_EXPORT = "the port takes the module, which carries its parameters and shapes"
+
+# JAX function (module path::name or ::Class.method) -> {JAX parameter: the
+# port's name for it}
+PARAM_RENAMED = {
+    "rl/ppo.py::ppo_update": {"axis_name": "mesh"},
+    "rl/ppo.py::ppo_update_recurrent": {"axis_name": "mesh"},
+}
+
+# JAX function -> {JAX parameter: why the port's function has none}
+PARAMS = {
+    "rl/ppo.py::ppo_update": {"network": _FUNCTIONAL, "ppo_state": _FUNCTIONAL},
+    "rl/ppo.py::ppo_update_recurrent": {"network": _FUNCTIONAL, "ppo_state": _FUNCTIONAL},
+    "models/rnd.py::RandomNetworkDistillation.intrinsic_reward": {"state": _FUNCTIONAL},
+    "models/rnd.py::RandomNetworkDistillation.predictor_loss": {
+        "state": _FUNCTIONAL, "predictor_params": _FUNCTIONAL},
+    "rl/distillation.py::Distillation.act": {"state": _FUNCTIONAL},
+    "rl/distillation.py::Distillation.update": {"state": _FUNCTIONAL},
+    "rl/distillation.py::Distillation.update_on_actions": {"state": _FUNCTIONAL},
+    "models/student_teacher.py::load_teacher_from_actor_critic": {
+        "st_params": "the port copies into the student-teacher module, which holds them"},
+    "rl/torch_compat.py::permute_params_to_our_dof_order": {
+        "params": "the port permutes a torch state dict, its `state`"},
+    "utils/export.py::export_policy_as_jit": {"params": _EXPORT},
+    "utils/export.py::export_recurrent_policy_as_jit": {
+        "params": _EXPORT, "num_obs": _EXPORT, "rnn_type": _EXPORT, "rnn_hidden_size": _EXPORT},
+    "ops/physics_kernel.py::make_env_step": {"interpret": _INTERPRET},
+    "ops/physics_kernel.py::make_env_step_rough": {"interpret": _INTERPRET},
+    "ops/physics_kernel.py::make_decimated_env_step": {
+        "interpret": _INTERPRET,
+        "torque_limits": "the port reads model.torque_limits, what the JAX env passes "
+                         "(envs/legged_robot.py:326)"},
+    "rl/ppo.py::compute_gae": {"timeouts": "the JAX body never reads it; the caller folds the "
+                                           "timeout bootstrap into the rewards"},
+    "terrain/confined.py::tunnel_terrain": {
+        "wall_thickness": "JAX deletes it unread (terrain/confined.py:60)"},
+    "terrain/confined.py::confined_gap_terrain": {
+        "platform_size": "JAX deletes it unread (terrain/confined.py:152)"},
+    "terrain/heightfield.py::flat_terrain": {"size": "a plane either way",
+                                             "hscale": "a plane either way"},
+    "trajopt/riccati.py::ilqr_solve": {k: _ILQR for k in (
+        "n_iters", "reg_init", "alphas", "reg_min", "reg_max", "u_clip", "hessian", "prox_x",
+        "prox_u")},
+    "parallel/mesh.py::shard_batch": {
+        "axis_name": "the port's mesh has one axis; its `axis` is the tensor dimension"},
 }
 
 
@@ -166,6 +225,71 @@ def test_public_names_have_a_port_counterpart(rel):
             elif not hasattr(getattr(mod, name), meth):
                 missing.append(qual)
     assert not missing, f"{rel}: no port counterpart for {missing}"
+
+
+def _jax_functions(rel: str):
+    """{qualified name: AST node} of the public functions and methods of the
+    JAX module at ``rel`` (properties excluded)."""
+    out = {}
+    for node in ast.parse((JAX_ROOT / rel).read_text()).body:
+        if isinstance(node, ast.FunctionDef) and _public(node.name):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef) and _public(node.name):
+            for b in node.body:
+                if (isinstance(b, ast.FunctionDef) and _public(b.name) and not any(
+                        isinstance(d, ast.Name) and d.id == "property"
+                        for d in b.decorator_list)):
+                    out[f"{node.name}.{b.name}"] = b
+    return out
+
+
+def _jax_params(fn: ast.FunctionDef):
+    a = fn.args
+    return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs if x.arg not in ("self", "cls")]
+
+
+def _port_params(key: str):
+    """The parameter names of the port's counterpart of ``key`` (``None``
+    where the port has none to compare)."""
+    rel, _, qual = RENAMED.get(key, key).partition("::")
+    obj = _port_module(rel)
+    for part in qual.split("."):
+        obj = getattr(obj, part, None)
+    if obj is None or not callable(obj):
+        return None
+    return [p for p in inspect.signature(obj).parameters if p not in ("self", "cls")]
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_public_parameters_have_a_port_counterpart(rel):
+    missing = []
+    for qual, fn in sorted(_jax_functions(rel).items()):
+        if rel in DELIBERATE or _excused(rel, qual) or _excused(rel, qual.split(".")[0]):
+            continue
+        key = f"{rel}::{qual}"
+        port = _port_params(key)
+        if port is None:
+            continue
+        for p in _jax_params(fn):
+            if p == "key" or p in port or p in PARAMS.get(key, ()):
+                continue
+            if PARAM_RENAMED.get(key, {}).get(p) not in port:
+                missing.append(f"{qual}({p})")
+    assert not missing, f"{rel}: the port lacks the parameters {missing}"
+
+
+def test_parameter_tables_name_real_differences():
+    """Every PARAMS and PARAM_RENAMED entry names a parameter of the JAX
+    function that the port's lacks, and a rename names one it has."""
+    for table in (PARAMS, PARAM_RENAMED):
+        for key, params in table.items():
+            rel, _, qual = key.partition("::")
+            jax_params = _jax_params(_jax_functions(rel)[qual])
+            port = _port_params(key)
+            for p in params:
+                assert p in jax_params and p not in port, (key, p)
+    for key, names in PARAM_RENAMED.items():
+        assert set(names.values()) <= set(_port_params(key)), key
 
 
 def test_exception_tables_name_real_jax_definitions():

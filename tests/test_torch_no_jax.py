@@ -90,7 +90,8 @@ SCRIPT = textwrap.dedent(f"""
               "rl.torch_compat", "utils.export", "utils.plot_logger", "utils.replay",
               "parallel", "parallel.distributed", "parallel.mesh", "scripts.play",
               "scripts.weak_scaling", "scripts.eval_parity", "scripts.diag_parity",
-              "scripts.compare_reference_reward", "scripts.extract_robot_models"):
+              "scripts.compare_reference_reward", "scripts.extract_robot_models",
+              "scripts.dryrun_multichip"):
         assert pkg.__name__ + "." + m in names, m
     from extended_legged_gym_tpu_torch.rl.runner import OnPolicyRunner
     from extended_legged_gym_tpu_torch.utils.task_registry import get_args, task_registry
