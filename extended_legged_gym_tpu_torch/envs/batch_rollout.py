@@ -29,6 +29,7 @@ from ..trajopt.riccati import ilqr_solve_batched, make_flattener
 from ..trajopt.sampling import TrajGradSampling, TrajOptConfig
 from ..utils.config import configclass
 from ..utils.math import quat_rotate_inverse
+from ..utils.tracing import span
 from ..utils.tree import tree_flatten, tree_map
 from .legged_robot import EnvState, LeggedRobot
 from .legged_robot_config import LeggedRobotCfg
@@ -141,6 +142,7 @@ class RobotBatchRollout(LeggedRobot):
             t=state.episode_length.to(torch.float32) * self.dt, stones=state.stones,
             measured_heights=state.measured_heights)
 
+    @span("rollout.step")
     def rollout_step(self, rs: RolloutState, actions: torch.Tensor,
                      env_params: EnvPhysParams, differentiable: bool = False
                      ) -> Tuple[RolloutState, torch.Tensor]:
@@ -148,29 +150,36 @@ class RobotBatchRollout(LeggedRobot):
         resets, pushes or command resampling."""
         clip_a = self.cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
-        phys, torques, report, _ = self._physics_substeps(rs.phys, actions, env_params,
-                                                          rs.last_dof_vel,
-                                                          differentiable=differentiable)
-        grav = torch.tensor([0.0, 0.0, -1.0], dtype=phys.base_pos.dtype,
-                            device=self.device).expand_as(phys.base_pos)
-        rs = rs.replace(
-            phys=phys, actions=actions, torques=torques,
-            base_lin_vel=quat_rotate_inverse(phys.base_quat, phys.base_lin_vel),
-            base_ang_vel=quat_rotate_inverse(phys.base_quat, phys.base_ang_vel),
-            projected_gravity=quat_rotate_inverse(phys.base_quat, grav),
-            foot_positions=report.foot_pos, foot_velocities=report.foot_vel,
-            geom_forces=report.geom_forces, t=rs.t + self.dt)
+        with span("env.physics"):
+            phys, torques, report, _ = self._physics_substeps(rs.phys, actions, env_params,
+                                                              rs.last_dof_vel,
+                                                              differentiable=differentiable)
+        with span("rollout.derived"):
+            grav = torch.tensor([0.0, 0.0, -1.0], dtype=phys.base_pos.dtype,
+                                device=self.device).expand_as(phys.base_pos)
+            rs = rs.replace(
+                phys=phys, actions=actions, torques=torques,
+                base_lin_vel=quat_rotate_inverse(phys.base_quat, phys.base_lin_vel),
+                base_ang_vel=quat_rotate_inverse(phys.base_quat, phys.base_ang_vel),
+                projected_gravity=quat_rotate_inverse(phys.base_quat, grav),
+                foot_positions=report.foot_pos, foot_velocities=report.foot_vel,
+                geom_forces=report.geom_forces, t=rs.t + self.dt)
         if self.obstacle_cfg is not None and rs.stones is not None:
-            phys, gf, stones = self._apply_obstacles(rs.phys, rs.foot_positions,
-                                                     rs.foot_velocities, rs.geom_forces, rs.stones)
+            with span("env.obstacles"):
+                phys, gf, stones = self._apply_obstacles(rs.phys, rs.foot_positions,
+                                                         rs.foot_velocities, rs.geom_forces,
+                                                         rs.stones)
             rs = rs.replace(phys=phys, geom_forces=gf, stones=stones)
         if self.num_height_points:
-            rs = rs.replace(measured_heights=self._get_heights(rs.phys))
-        if len(self.termination_geoms):
-            forces = rs.geom_forces[:, self.termination_geoms]
-            rs = rs.replace(reset_buf=torch.any(torch.linalg.norm(forces, dim=-1) > 1.0, dim=-1))
-        rs, rew = self._compute_rollout_reward(rs)
-        return rs.replace(last_actions=rs.actions, last_dof_vel=rs.phys.joint_vel), rew
+            with span("env.heights"):
+                rs = rs.replace(measured_heights=self._get_heights(rs.phys))
+        with span("rollout.reward"):
+            if len(self.termination_geoms):
+                forces = rs.geom_forces[:, self.termination_geoms]
+                rs = rs.replace(reset_buf=torch.any(torch.linalg.norm(forces, dim=-1) > 1.0,
+                                                    dim=-1))
+            rs, rew = self._compute_rollout_reward(rs)
+            return rs.replace(last_actions=rs.actions, last_dof_vel=rs.phys.joint_vel), rew
 
     def _compute_rollout_reward(self, rs: RolloutState) -> Tuple[RolloutState, torch.Tensor]:
         ctx = self._contact_context(rs)
@@ -180,6 +189,7 @@ class RobotBatchRollout(LeggedRobot):
                         feet_contact_time=ctx["feet_contact_time"] * ctx["contact_filt"])
         return rs, rew
 
+    @span("rollout")
     def rollout_batch(self, state: EnvState, all_us: torch.Tensor,
                       differentiable: bool = False) -> torch.Tensor:
         """Per-step rewards ``[E, S, H+1]`` of S candidate control sequences
@@ -316,6 +326,7 @@ class RobotTrajGradSampling(RobotBatchRollout):
 
         return step_fn, flatten(dyn0), (rs0, state.env_params)
 
+    @span("mpc.polish")
     def polish_riccati(self, state: EnvState, nodes: torch.Tensor,
                        n_iters: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Refine the mean node trajectories by batched time-varying LQR
@@ -344,20 +355,26 @@ class RobotTrajGradSampling(RobotBatchRollout):
                                append_action: Optional[torch.Tensor] = None):
         return self.traj_sampler.shift(nodes, 1, append_action)
 
+    @span("mpc.step")
     def mpc_step(self, state: EnvState, nodes: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  n_diffuse: Optional[int] = None) -> Tuple[EnvState, torch.Tensor, Dict]:
         """One MPC cycle: optimize -> execute the first action -> shift (tail
         from the warm-start policy), re-seeding tipping or reset envs."""
-        nodes, info = self.optimize_all_trajectories(state, nodes, generator, n_diffuse=n_diffuse)
+        with span("mpc.optimize"):
+            nodes, info = self.optimize_all_trajectories(state, nodes, generator,
+                                                         n_diffuse=n_diffuse)
         state = self.step(state, self.node2u_batch(nodes)[:, 0])
-        append = None
-        if self.rl_policy is not None and self.cfg.rl_warmstart.use_for_append:
-            append = self.rl_policy(state.obs)
-        nodes = self.shift_trajectory_batch(nodes, append_action=append)
+        with span("mpc.shift"):
+            append = None
+            if self.rl_policy is not None and self.cfg.rl_warmstart.use_for_append:
+                append = self.rl_policy(state.obs)
+            nodes = self.shift_trajectory_batch(nodes, append_action=append)
         if self.rl_policy is not None and self.cfg.rl_warmstart.refresh_on_near_fall:
-            near = ((state.projected_gravity[:, 2] > self.cfg.rl_warmstart.near_fall_upright)
-                    | state.reset_buf)
-            if bool(near.any()):
-                nodes = torch.where(near[:, None, None], self.init_trajectories_from_rl(state), nodes)
+            with span("mpc.refresh"):
+                near = ((state.projected_gravity[:, 2] > self.cfg.rl_warmstart.near_fall_upright)
+                        | state.reset_buf)
+                if bool(near.any()):
+                    nodes = torch.where(near[:, None, None], self.init_trajectories_from_rl(state),
+                                        nodes)
         return state, nodes, info

@@ -147,6 +147,7 @@ from ..terrain.mesh import TerrainObj
 from ..utils.config import class_to_dict
 from ..utils.device import resolve_device
 from ..utils.math import quat_apply_yaw, quat_rotate, quat_rotate_inverse, wrap_to_pi
+from ..utils.tracing import span
 from ..utils.tree import tree_map
 from .legged_robot_config import UNREAD_ENV_FIELDS, LeggedRobotCfg, refuse_unread
 
@@ -606,19 +607,23 @@ class LeggedRobot:
         return torch.where(mask[:, None], new, commands)
 
     # ------------------------------------------------------------------ step
+    @span("env.step")
     def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         """Full RL step: decimated PD physics + post-physics (rewards,
         terminations, resets, observations)."""
         clip_a = self.cfg.normalization.clip_actions
         actions = torch.clamp(actions, -clip_a, clip_a)
-        phys, torques, report, hidden = self._physics_substeps(
-            state.phys, actions, state.env_params, state.last_dof_vel, state.actuator_hidden)
+        with span("env.physics"):
+            phys, torques, report, hidden = self._physics_substeps(
+                state.phys, actions, state.env_params, state.last_dof_vel, state.actuator_hidden)
         state = state.replace(phys=phys, actions=actions, torques=torques, actuator_hidden=hidden)
-        state = self._refresh_derived(state, report)
+        with span("env.derived"):
+            state = self._refresh_derived(state, report)
         if self.obstacle_cfg is not None:
-            phys, gf, stones = self._apply_obstacles(state.phys, state.foot_positions,
-                                                     state.foot_velocities, state.geom_forces,
-                                                     state.stones)
+            with span("env.obstacles"):
+                phys, gf, stones = self._apply_obstacles(state.phys, state.foot_positions,
+                                                         state.foot_velocities, state.geom_forces,
+                                                         state.stones)
             state = state.replace(phys=phys, geom_forces=gf, stones=stones)
         return self._post_physics_step(state)
 
@@ -704,7 +709,8 @@ class LeggedRobot:
             upd.update(foot_positions=report.foot_pos, foot_velocities=report.foot_vel,
                        geom_forces=report.geom_forces)
         if self.num_height_points:
-            upd["measured_heights"] = self._get_heights(phys)
+            with span("env.heights"):
+                upd["measured_heights"] = self._get_heights(phys)
         return state.replace(**upd)
 
     def _get_heights(self, phys: PhysState) -> torch.Tensor:
@@ -715,48 +721,54 @@ class LeggedRobot:
         return sample_height(self.terrain, world[..., :2])
 
     def _post_physics_step(self, state: EnvState) -> EnvState:
-        state = state.replace(episode_length=state.episode_length + 1,
-                              common_step=state.common_step + 1)
-        resample = (state.episode_length % self.resampling_interval) == 0
-        commands = self._sample_commands(state.commands, resample, state.command_lin_vel_x_range)
-        if self.cfg.commands.heading_command:
-            fwd = quat_rotate(state.phys.base_quat,
-                              torch.tensor([1.0, 0.0, 0.0], device=self.device).expand(
-                                  self.num_envs, 3))
-            heading = torch.atan2(fwd[:, 1], fwd[:, 0])
-            commands = torch.cat([commands[:, :2], torch.clamp(
-                0.5 * wrap_to_pi(commands[:, 3] - heading), -1.0, 1.0)[:, None], commands[:, 3:]],
-                dim=1)
-        state = state.replace(commands=commands)
-        if self.cfg.domain_rand.push_robots:
-            push_now = (state.common_step % self.push_interval) == 0
-            lin = state.phys.base_lin_vel
-            pushed = torch.cat([self._draw_push_vel(), lin[:, 2:]], dim=1)
-            state = state.replace(phys=state.phys.replace(
-                base_lin_vel=torch.where(push_now, pushed, lin)))
+        with span("env.commands"):
+            state = state.replace(episode_length=state.episode_length + 1,
+                                  common_step=state.common_step + 1)
+            resample = (state.episode_length % self.resampling_interval) == 0
+            commands = self._sample_commands(state.commands, resample,
+                                             state.command_lin_vel_x_range)
+            if self.cfg.commands.heading_command:
+                fwd = quat_rotate(state.phys.base_quat,
+                                  torch.tensor([1.0, 0.0, 0.0], device=self.device).expand(
+                                      self.num_envs, 3))
+                heading = torch.atan2(fwd[:, 1], fwd[:, 0])
+                commands = torch.cat([commands[:, :2], torch.clamp(
+                    0.5 * wrap_to_pi(commands[:, 3] - heading), -1.0, 1.0)[:, None],
+                    commands[:, 3:]], dim=1)
+            state = state.replace(commands=commands)
+            if self.cfg.domain_rand.push_robots:
+                push_now = (state.common_step % self.push_interval) == 0
+                lin = state.phys.base_lin_vel
+                pushed = torch.cat([self._draw_push_vel(), lin[:, 2:]], dim=1)
+                state = state.replace(phys=state.phys.replace(
+                    base_lin_vel=torch.where(push_now, pushed, lin)))
 
-        reset_buf, time_out = self._check_termination(state)
-        nan0 = torch.nan_to_num
-        state = state.replace(
-            reset_buf=reset_buf, time_out_buf=time_out,
-            phys=tree_map(nan0, state.phys),
-            base_lin_vel=nan0(state.base_lin_vel), base_ang_vel=nan0(state.base_ang_vel),
-            projected_gravity=nan0(state.projected_gravity),
-            geom_forces=nan0(state.geom_forces), foot_positions=nan0(state.foot_positions),
-            foot_velocities=nan0(state.foot_velocities), torques=nan0(state.torques),
-            measured_heights=tree_map(nan0, state.measured_heights))
+        with span("env.termination"):
+            reset_buf, time_out = self._check_termination(state)
+            nan0 = torch.nan_to_num
+            state = state.replace(
+                reset_buf=reset_buf, time_out_buf=time_out,
+                phys=tree_map(nan0, state.phys),
+                base_lin_vel=nan0(state.base_lin_vel), base_ang_vel=nan0(state.base_ang_vel),
+                projected_gravity=nan0(state.projected_gravity),
+                geom_forces=nan0(state.geom_forces), foot_positions=nan0(state.foot_positions),
+                foot_velocities=nan0(state.foot_velocities), torques=nan0(state.torques),
+                measured_heights=tree_map(nan0, state.measured_heights))
 
-        state, rew = self._compute_reward(state)
-        state = state.replace(rew=rew, episode_return=state.episode_return + rew)
-        state = self._reset_envs(state, reset_buf)
-        obs = self._compute_observations(state)
-        if self.cfg.noise.add_noise:
-            obs = obs + self._draw_obs_noise(obs.shape) * self.noise_scale_vec
-        clip_obs = self.cfg.normalization.clip_observations
-        state = state.replace(obs=torch.clamp(obs, -clip_obs, clip_obs))
-        if self.num_privileged_obs:
-            state = state.replace(privileged_obs=torch.clamp(
-                self._compute_privileged_observations(state), -clip_obs, clip_obs))
+        with span("env.reward"):
+            state, rew = self._compute_reward(state)
+            state = state.replace(rew=rew, episode_return=state.episode_return + rew)
+        with span("env.reset"):
+            state = self._reset_envs(state, reset_buf)
+        with span("env.obs"):
+            obs = self._compute_observations(state)
+            if self.cfg.noise.add_noise:
+                obs = obs + self._draw_obs_noise(obs.shape) * self.noise_scale_vec
+            clip_obs = self.cfg.normalization.clip_observations
+            state = state.replace(obs=torch.clamp(obs, -clip_obs, clip_obs))
+            if self.num_privileged_obs:
+                state = state.replace(privileged_obs=torch.clamp(
+                    self._compute_privileged_observations(state), -clip_obs, clip_obs))
         return state
 
     def _check_termination(self, state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:

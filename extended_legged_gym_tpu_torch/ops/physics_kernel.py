@@ -55,6 +55,7 @@ from ..physics.aba import aba_physics_step, foot_geoms
 from ..physics.engine import EnvPhysParams, PhysState, SimParams, StepReport
 from ..physics.model import RobotModel
 from ..terrain.heightfield import TerrainData, flat_terrain
+from ..utils.tracing import span
 from ..utils.tree import tree_map
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -478,10 +479,12 @@ class DecimatedEnvStep:
         ins = [bufs[k].data_ptr() for k in ("state", "act", "fric", "delta")]
         ins += [t["tf"].data_ptr(), t["ti"].data_ptr()]
         outs = [bufs[k].data_ptr() for k in ("out", "tau", "gf", "fpos", "fvel")]
-        if self.rough:
-            rc = lib.physics_decimated_step_rough(*ins, t["tex"].data_ptr(), *outs, bufs["B"], stream)
-        else:
-            rc = lib.physics_decimated_step(*ins, *outs, bufs["B"], stream)
+        with span("physics.launch"):
+            if self.rough:
+                rc = lib.physics_decimated_step_rough(*ins, t["tex"].data_ptr(), *outs, bufs["B"],
+                                                      stream)
+            else:
+                rc = lib.physics_decimated_step(*ins, *outs, bufs["B"], stream)
         if rc != 0:
             raise RuntimeError(f"physics kernel {'B2' if self.rough else 'B1'} launch failed: "
                                f"cudaError {rc}")
@@ -510,9 +513,11 @@ class DecimatedEnvStep:
                lib: Optional[ctypes.CDLL] = None):
         """Run the CUDA kernel, B2 on a heightfield, else B1 (CUDA tensors
         only): pack, one launch, unpack."""
-        bufs = self.pack(phys, actions, env_params)
+        with span("physics.pack"):
+            bufs = self.pack(phys, actions, env_params)
         self.run(bufs, lib)
-        return self.unpack(bufs)
+        with span("physics.unpack"):
+            return self.unpack(bufs)
 
 
 def make_decimated_env_step(model: RobotModel, sp: SimParams, terrain: TerrainData,

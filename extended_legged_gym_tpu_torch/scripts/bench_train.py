@@ -26,9 +26,7 @@ and update (host clock around each part, ending in a synchronize) over
 ``iters`` iterations, and, from a torch.profiler trace of ``reps``
 iterations, the wall ms per iteration (profiler on), the device-busy ms per
 iteration, the device's idle share against the profiled wall
-(``device_idle_share``) and against the unprofiled iteration
-(``device_idle_share_unprofiled``; the profiler's host overhead stretches the
-wall, so the first is the larger), the physics kernel's (B1 on flat
+(``device_idle_share``), the physics kernel's (B1 on flat
 ground, B2 on a heightfield) ms and launches per iteration, and the device
 kernels that take the most time.  On the PPO paths also the host ms that
 ``OnPolicyRunner.learn``'s ``MetricsWriter.write`` adds per iteration, with
@@ -110,8 +108,6 @@ def profile_iterations(iterate, warmup: int, iters: int, reps: int) -> dict:
                 s_per_iteration=(col + upd) / iters,
                 profiled_wall_ms=wall_ms, device_busy_ms=split["device_busy_ms"],
                 device_idle_share=1.0 - split["device_busy_ms"] / wall_ms,
-                device_idle_share_unprofiled=1.0 - split["device_busy_ms"] * iters
-                / ((col + upd) * 1e3),
                 kernel_ms=split["physics_kernel_ms"], kernel_launches=split["physics_launches"],
                 top_device_kernels=top_device_kernels(prof, reps))
 

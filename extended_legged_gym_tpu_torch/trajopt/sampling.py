@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 from .optimizers import make_update_fn
 from .spline import TrajSpline
 
@@ -87,18 +88,24 @@ class TrajGradSampling:
         E, A = nodes.shape[0], self.num_actions
         infos = []
         for i in range(n_diffuse):
-            sigma = self.node_sigma[None, None, :, None] * cfg.traj_diffuse_factor ** float(i)
-            if noise is not None:
-                eps = noise[i]
-            else:
-                eps = torch.randn((E, cfg.num_samples, cfg.horizon_nodes + 1, A),
-                                  generator=generator, device=nodes.device)
-            samples = torch.cat([nodes[:, None], nodes[:, None] + sigma * eps], dim=1)
-            samples[:, :, 0, :] = nodes[:, None, 0, :]
-            rewards = rollout_fn(self.node2u(samples))                     # [E, S, Hs+1]
-            nodes = self.update_fn(nodes, samples, rewards)
-            infos.append(dict(rew_mean=rewards.mean(dim=(1, 2)),
-                              rew_best=rewards.sum(dim=-1).amax(dim=1) / (cfg.horizon_samples + 1)))
+            with span("mpc.diffuse"):
+                with span("mpc.sample"):
+                    sigma = (self.node_sigma[None, None, :, None]
+                             * cfg.traj_diffuse_factor ** float(i))
+                    if noise is not None:
+                        eps = noise[i]
+                    else:
+                        eps = torch.randn((E, cfg.num_samples, cfg.horizon_nodes + 1, A),
+                                          generator=generator, device=nodes.device)
+                    samples = torch.cat([nodes[:, None], nodes[:, None] + sigma * eps], dim=1)
+                    samples[:, :, 0, :] = nodes[:, None, 0, :]
+                    us = self.node2u(samples)
+                rewards = rollout_fn(us)                                   # [E, S, Hs+1]
+                with span("mpc.update"):
+                    nodes = self.update_fn(nodes, samples, rewards)
+                    infos.append(dict(rew_mean=rewards.mean(dim=(1, 2)),
+                                      rew_best=rewards.sum(dim=-1).amax(dim=1)
+                                      / (cfg.horizon_samples + 1)))
         if not infos:
             empty = torch.zeros(0, E, device=nodes.device)
             return nodes, dict(rew_mean=empty, rew_best=empty)
@@ -116,6 +123,7 @@ class TrajGradSampling:
         us = torch.cat([us[..., :-n_steps, :], tail], dim=-2)
         return self.u2node(us)
 
+    @span("mpc.polish")
     def polish(self, nodes: torch.Tensor, rollout_fn: Callable, n_iters: int, lr: float
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """First-order refinement of the mean node trajectories by
@@ -146,6 +154,7 @@ class TrajGradSampling:
             gains.append((J_new - J_old).clamp(min=0.0).mean())
         return nodes, dict(polish_gain=torch.stack(gains))
 
+    @span("mpc.polish")
     def polish_fd(self, nodes: torch.Tensor, rollout_fn: Callable, n_iters: int, lr: float,
                   eps: float = 0.05) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Gradient polish with a batched central-difference gradient: the
