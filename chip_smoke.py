@@ -5,25 +5,31 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases (each prints its seconds; the run fails rather than overrun):
+Phases (each prints its seconds and the fused step's and the torques-in
+route's launches that ran two envs per warp, the packed launches; the run
+fails rather than overrun):
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile both fused physics kernels (csrc/physics_step.cu: B1 flat,
-   B2 heightfield; one warp per env, working set in shared memory) with one
-   nvcc call and print ptxas's report of each (registers, stack, spills);
+2. build: compile the fused physics kernels (csrc/physics_step.cu: B1 flat,
+   B2 heightfield; a warp per env or two envs per warp, working set in shared
+   memory) with one nvcc call and print ptxas's report of each (registers,
+   stack, spills);
 3. B1 against its plain version (physics/aba.py) on the card, a block's
    shared memory printed: one control step from seeded near-standing states
    with random actions at every batch the MPC path launches it with (8 x 128,
    8 x 97, 8 x 3 and 8 envs; 128, 97 and 3 at E=1), at 2048 and at 4096 (the
    training fleet), at 64 (the flat estimator evidence) and 256 (the
-   distillation fleet), then 25 control steps of drift at 8 x 97, and two
-   launches on the same inputs at 1024 and at 4096, which must agree bit for
-   bit;
+   distillation fleet), then at 32768 and 262144 (the MPC benchmark's
+   diffusion rollouts), which must run in the packed layout's full blocks,
+   with 256 sampled rows held to plain, then 25 control steps of drift at
+   8 x 97, and two launches on the same inputs at 1024 and at 4096, which
+   must agree bit for bit;
 4. B2 against its plain version on the anymal_c_rough curriculum grid
    (900 x 900 heightfield): near-standing states on the spawn origins, one
    control step at 32 envs (the rough evaluation), 128 (the estimator and
-   its closed loop) and 4096 (the rough config's fleet), 25 control steps of
-   drift at 32, two launches bit for bit at 4096; B2 and plain timed at
-   each batch;
+   its closed loop) and 4096 (the rough config's fleet), and at 32768 (the
+   rough PPO benchmark's fleet) in full blocks with 256 sampled rows, 25
+   control steps of drift at 32, two launches bit for bit at 4096; B2 and
+   plain timed at each batch but the full-block ones;
 5. MPC path: ANYmal-C flat sampling MPC (RobotTrajGradSampling.mpc_step at
    the committed config, 8 envs, 0.7 m/s command, warm-started from the
    committed checkpoint); B1's launch count is read from this run;
@@ -311,6 +317,13 @@ CHECK_B = (1024, 776, 24, 8, 128, 97, 3, 2048, 4096, 64, 256)
 # B2: the rough evaluation's fleet, the estimator's and the rough config's
 # training fleet
 ROUGH_B = (32, 128, 4096)
+# batches that take the packed layout's full blocks (one per SM, from
+# FULL_BLOCK_WAVES waves of them): B1 at the MPC benchmark's diffusion
+# rollouts (64 x 4096) and at 32768, B2 at the rough PPO benchmark's fleet;
+# each launch steps every env, and these sampled rows are held to plain
+FULL_B1_B = (32768, 262144)
+FULL_B2_B = (32768,)
+FULL_BLOCK_ROWS = 256
 ROUGH_STEPS = 20
 # after 25 control steps (100 substeps) the stiction/contact dynamics amplify
 # rounding differences (FMA contraction, summation order); the bounds are ~10x
@@ -445,9 +458,19 @@ def log(msg):
     print(msg, flush=True)
 
 
+# launches that ran two envs per warp, fused control step and torques-in
+# route, up to the last phase's end (phase_done prints each phase's)
+PACKED_SEEN = [0, 0]
+
+
 def phase_done(name, t0):
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+
     now = time.perf_counter()
-    log(f"[{name}] {now - t0:.2f} s (total {now - T_START:.1f} s)")
+    packed = [pk.DecimatedEnvStep.packed_launches, pk.EnvStep.packed_launches]
+    log(f"[{name}] {now - t0:.2f} s (total {now - T_START:.1f} s); packed launches "
+        f"{packed[0] - PACKED_SEEN[0]}, torques-in {packed[1] - PACKED_SEEN[1]}")
+    PACKED_SEEN[:] = packed
     if now - T_START > TIME_LIMIT_S:
         raise SystemExit(f"chip_smoke: over the {TIME_LIMIT_S:.0f} s limit after phase {name}")
 
@@ -456,10 +479,13 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
+def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None, rows=None):
     """One control step of ``step``'s kernel against its plain version from
     ``states`` = (phys, env_params, actions), the plain version computed in
-    ``plain_dtype`` (default float32); fails beyond ONE_STEP_ATOL.  Against
+    ``plain_dtype`` (default float32); fails beyond ONE_STEP_ATOL.  With
+    ``rows`` (indices into the batch) the kernel steps all ``B`` envs in one
+    launch and only those rows are held to the plain version, run on their
+    inputs alone, untimed.  Against
     float64, an env whose own float32 and float64 plain steps part by more
     than ONE_STEP_ATOL (a contact decision that rounding flips, such as a
     foot on a stair's edge) is held to the float32 plain step, the others to
@@ -471,9 +497,14 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
 
     from extended_legged_gym_tpu_torch.scripts import bench_mpc
     from extended_legged_gym_tpu_torch.scripts.bench_kernel import launch_bound
+    from extended_legged_gym_tpu_torch.utils.tree import tree_map
 
     st, ep, act = states
     sk, tk, rk = step.launch(st, act, ep)
+    if rows is not None:
+        pick = lambda x: x[rows]
+        sk, tk, rk = tree_map(pick, sk), pick(tk), tree_map(pick, rk)
+        st, ep, act = tree_map(pick, st), tree_map(pick, ep), pick(act)
     sp_, tp, rp = step.plain(st, act, ep, dtype=plain_dtype)
     if plain_dtype is not None:
         sp32, tp32, rp32 = step.plain(st, act, ep)
@@ -483,14 +514,15 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
             f"{k}={(getattr(sp32, k) - getattr(sp_, k)).abs().max().item():.3g}"
             for k in ("joint_pos", "joint_vel")) + f"; below: kernel - {plain_dtype} plain")
         if plain_dtype == torch.float64:
-            env_err = lambda a, b: (a - b).abs().reshape(B, -1).amax(1)
-            parted = torch.zeros(B, dtype=torch.bool, device=sk.base_pos.device)
+            n = sk.base_pos.shape[0]
+            env_err = lambda a, b: (a - b).abs().reshape(n, -1).amax(1)
+            parted = torch.zeros(n, dtype=torch.bool, device=sk.base_pos.device)
             for k, tol in ONE_STEP_ATOL.items():
                 a, b = ((rp32.foot_pos, rp.foot_pos) if k == "foot_pos"
                         else (getattr(sp32, k), getattr(sp_, k)))
                 if a.numel():
                     parted |= env_err(a, b) > tol
-            pick = lambda a, b: torch.where(parted.reshape((B,) + (1,) * (a.dim() - 1)), a, b)
+            pick = lambda a, b: torch.where(parted.reshape((n,) + (1,) * (a.dim() - 1)), a, b)
             sp_ = sp_.replace(**{k: pick(getattr(sp32, k), getattr(sp_, k))
                                  for k in ONE_STEP_ATOL if k != "foot_pos"})
             tp = pick(tp32, tp)
@@ -516,6 +548,8 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
     for out in (sk, sp_):
         if not all(torch.isfinite(getattr(out, k)).all() for k in ONE_STEP_ATOL if k != "foot_pos"):
             fail(f"non-finite state after one {name} step at B={B}")
+    if rows is not None:
+        return max(errs[k] for k in ONE_STEP_ATOL)
     bufs = step.pack(st, act, ep)
     kms = bench_mpc.cuda_ms(lambda: step.run(bufs), reps=20, warmup=3)
     wms = bench_mpc.cuda_ms(lambda: step.launch(st, act, ep), reps=20, warmup=3)
@@ -527,6 +561,32 @@ def compare_one_step(name, step, B, states, kernel_stats, plain_dtype=None):
         f"packing), plain {pms:.3f} ms, bound {bound_ms * 1e3:.3f} us ({flops:.3g} flop, "
         f"{nbytes:.3g} bytes)")
     return max(errs[k] for k in ONE_STEP_ATOL)
+
+
+def full_block_check(name, step, B, states):
+    """One launch of ``B`` envs, which must take the packed layout's full
+    blocks (``step.full_envs`` envs, one block per SM: the layout of the
+    benchmark's 262144-env diffusion rollouts and 32768-env rough fleets),
+    with FULL_BLOCK_ROWS of its rows (the last among them) held to the plain
+    version by compare_one_step."""
+    import numpy as np
+    import torch
+
+    from extended_legged_gym_tpu_torch.ops import physics_kernel as pk
+
+    dev = states[0].base_pos.device
+    rows = np.random.default_rng(B).choice(B - 1, FULL_BLOCK_ROWS - 1, replace=False)
+    rows = torch.as_tensor(np.append(np.sort(rows), B - 1), device=dev)
+    before = pk.DecimatedEnvStep.packed_launches
+    err = compare_one_step(name, step, B, states, {}, rows=rows)
+    shape = step.launch_shape(B, dev, pk.load_library())
+    packed = pk.DecimatedEnvStep.packed_launches - before
+    log(f"{name} at B={B}: launch shape {shape} (lanes per env, envs per block), "
+        f"{packed} packed launch; {len(rows)} rows against plain")
+    if shape != (pk.PACKED_GROUP, step.full_envs) or packed != 1:
+        fail(f"{name} at B={B} did not run in full packed blocks of {step.full_envs} envs: "
+             f"shape {shape}, {packed} packed launches")
+    return err
 
 
 def track_float32(name, step, B, states):
@@ -2568,11 +2628,16 @@ def main():
     model = load_model(cfg.asset.file)
     step = AnymalCTrajGradSampling(cfg, device=dev).decimated_step
     log(f"B1 block of {pk.ENVS_PER_BLOCK} envs: "
-        f"{pk.block_shared_bytes(model.nb, model.nj, model.ng, step.nf)} bytes of shared memory")
+        f"{pk.block_shared_bytes(model.nb, model.nj, model.ng, step.nf)} bytes of shared memory; "
+        f"two envs per warp, {pk.PACKED_ENVS_PER_BLOCK} / {step.full_envs} envs: "
+        f"{pk.block_shared_bytes(model.nb, model.nj, model.ng, step.nf, envs=pk.PACKED_ENVS_PER_BLOCK)}"
+        f" / {pk.block_shared_bytes(model.nb, model.nj, model.ng, step.nf, envs=step.full_envs)}")
     flat_stats, flat_err = {}, 0.0
     for B in CHECK_B:
         flat_err = max(flat_err, compare_one_step("B1", step, B, near_standing(model, B, B, dev),
                                                   flat_stats))
+    for B in FULL_B1_B:
+        flat_err = max(flat_err, full_block_check("B1", step, B, near_standing(model, B, B, dev)))
     drift_check("B1", step, 776, near_standing(model, 776, 7, dev))
     bit_identical("B1", step, 1024, near_standing(model, 1024, 1, dev))
     bit_identical("B1", step, 4096, near_standing(model, 4096, 3, dev))
@@ -2594,6 +2659,10 @@ def main():
     for B in ROUGH_B:
         rough_err = max(rough_err, compare_one_step(
             "B2", rstep, B, near_standing(model, B, B, dev, origins), rough_stats))
+    for B in FULL_B2_B:
+        tiled = origins.repeat(-(-B // origins.shape[0]), 1)
+        rough_err = max(rough_err, full_block_check(
+            "B2", rstep, B, near_standing(model, B, B, dev, tiled)))
     drift_check("B2", rstep, 32, near_standing(model, 32, 11, dev, origins))
     bit_identical("B2", rstep, 4096, near_standing(model, 4096, 2, dev, origins))
     log("no single PyTorch call computes this step; library_ms is null")

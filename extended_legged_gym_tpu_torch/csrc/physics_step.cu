@@ -50,11 +50,21 @@
 // alone issues few independent instructions.  The first design ran the chain
 // on one thread per env with a 16 KB local-memory stack, one warp per SM.
 //
-// Design: one WARP per environment (GROUP = 32 lanes), ENVS_PER_BLOCK warps per
-// block, so B = 1024 launches 256 blocks over all 132 SMs; a block takes
-// ~54-56 KB of shared memory for ANYmal-C, and BLOCKS_PER_SM of them fit an
-// SM at once (B2: 4, at 128 registers a thread; B1: 3, as it spills at 128),
-// so B = 4096 runs in two waves of B2.  Each env's
+// Design: a group of G lanes per environment.  At G = 32 (one warp per env, 4
+// envs per block) B = 1024 launches 256 blocks over all 132 SMs; a block takes
+// ~54-56 KB of shared memory for ANYmal-C, and BLOCKS_PER_SM of them fit an SM
+// at once (B2: 4, at 128 registers a thread; B1: 3, as it spills at 128), so
+// B = 4096 runs in two waves of B2.  A model of at most 16 bodies leaves most
+// of a warp's lanes idle in every phase, so at G = 16 a warp runs two envs: a
+// block of 8 (2 blocks per SM) holds 16 ANYmal-C envs per SM in B1 instead of
+// 12, a block of 20 (one per SM) 20.  The step is a chain of dependent phases
+// whose latency the other resident envs hide, so envs per SM set the rate at
+// large B.  The wrapper packs a launch whose envs fill more than one wave at
+// G = 32 (below that a warp per env, where latency rules), and takes the
+// largest block from many waves of it up (below, a part-filled last wave of
+// large blocks costs more than the residency gains); it keeps a warp per env
+// where the packed layout holds fewer envs per SM (a large workspace: Go2's
+// 56 geoms leave room for one packed block of 8).  Each env's
 // working set (frames, velocities, articulated inertias, U / D^-1 / u, geom
 // terms, the state row, outputs) lives in dynamic shared memory, laid out by
 // ws_layout() from the robot's real nb, nj, ng, nf (not the compile-time
@@ -71,8 +81,9 @@
 //     registers (joint rotations, frames, positions, velocities), the same
 //     operations its ancestors' lanes run, so the same bits: one phase
 //     instead of one per tree level; likewise the forward sweep;
-//   * contacts run one geom per lane (ANYmal-C: 36 geoms in two passes), so
-//     B2's 32 heightfield reads of a pass are in flight at once; each geom
+//   * contacts run one geom per lane (ANYmal-C: 36 geoms in two passes at
+//     G = 32, three at G = 16), so a pass's heightfield reads (B2) are in
+//     flight at once; each geom
 //     leaves its damper and wrench terms in a slot ordered body by body;
 //   * each body (one lane) then sums its own geoms' terms into its
 //     articulated inertia and bias force;
@@ -94,10 +105,12 @@
 // ops/physics_kernel.py); one build serves every robot under the maxima.
 //
 // The same source compiles with a host C++ compiler (tests/
-// test_torch_kernel_host.py): there FOR_LANES runs the lanes of a phase one
-// after another (in either order, a check that no lane reads what another
-// writes in the same phase), SYNC() is empty and a host array stands for the
-// shared memory, so the test runs this cooperative body itself.
+// test_torch_kernel_host.py): there each lane of a warp is a coroutine, SYNC()
+// hands control back to the harness, which runs the lanes of a phase one after
+// another (in any order, a check that no lane reads what another writes in the
+// same phase, within its group or across the two groups of a warp), and host
+// arrays stand for the shared memory, so the test runs this cooperative body
+// itself at either G.
 
 // Division on the card is the hardware's approximate one (__fdividef, 2 ulp;
 // the divisors here are bounded), which shortens the dependent chains; the
@@ -185,13 +198,28 @@ inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z,
 #define TF_SIZE (TF_GMAX + 2)
 
 // ---- cooperative execution ----
-#define GROUP 32           // lanes per environment: one warp
-#define ENVS_PER_BLOCK 4   // environments (warps) per block
-// Blocks an SM holds at once (the register cap that follows): B2 fits 4 (128
-// registers a thread) without spilling, B1 spills at 4 and takes 3.
-#define BLOCKS_PER_SM(rough) ((rough) ? 4 : 3)
+// An env runs on a group of G lanes: G = 32, one warp per env, or G = 16, two
+// envs per warp (lanes 0-15 and 16-31), for a model whose bodies and joints fit
+// 16 lanes.  Both groups of a warp run the same phases, so a phase boundary
+// stays one __syncwarp(); each group gives its tasks to its lanes as a warp
+// does (a body, geom, DOF or foot per lane, strided by G), so an env does the
+// same operations in the same order under either G.  The wrapper picks G
+// and a block's envs (ops/physics_kernel.py:DecimatedEnvStep.launch_shape).
+#define WARP 32
+#define ENVS_PER_BLOCK 4     // a warp per env: 4 envs (warps) per block
+// Two envs per warp: the wrapper picks a block's envs at launch, 8 (4 warps; 2
+// blocks of ANYmal-C's B1, 97404 bytes each, fill an SM's shared memory: 16
+// envs) or as many as one block's shared memory holds, up to PACKED_MAX_ENVS
+// (10 warps; 20 ANYmal-C envs in B1, 19 in B2, one block per SM).
+#define PACKED_MAX_ENVS 20
+// Blocks an SM holds at once (the register cap that follows).  One warp per
+// env: B2 fits 4 (128 registers a thread) without spilling, B1 spills at 4 and
+// takes 3.  Two envs per warp: one block of PACKED_MAX_ENVS envs, under a cap
+// of 204 registers (shared memory sets the residency).
+#define BLOCKS_PER_SM(rough, G) ((G) == WARP ? ((rough) ? 4 : 3) : 1)
+#define MAX_BLOCK_ENVS(G) ((G) == WARP ? ENVS_PER_BLOCK : PACKED_MAX_ENVS)
 #ifdef __CUDACC__
-#define FOR_LANES(l) for (int l = (int)(threadIdx.x % GROUP), l##_run = 1; l##_run; l##_run = 0)
+#define FOR_LANES(l) for (int l = (int)(threadIdx.x % G), l##_run = 1; l##_run; l##_run = 0)
 #ifdef PHYS_PROFILE
 // phase profile (scripts/profile_phases.py): lane 0 of block 0 stamps the SM
 // clock at the kernel's entry, after its staging and at every phase boundary
@@ -205,20 +233,21 @@ __device__ int phys_prof_n;
   } while (0)
 #define SYNC()                                                                    \
   do {                                                                            \
-    __syncwarp();                                                                 \
+    __syncwarp(mask);                                                             \
     PROF_STAMP();                                                                 \
   } while (0)
 #else
 #define PROF_STAMP()
-#define SYNC() __syncwarp()
+#define SYNC() __syncwarp(mask)   // `mask`: the warp's lanes whose env exists
 #endif
 #else
-static int phys_lanes_reversed = 0;   // host emulation: run a phase's lanes last to first
-#define FOR_LANES(l)                                                            \
-  for (int l##_k = 0; l##_k < GROUP; ++l##_k)                                   \
-    for (int l = phys_lanes_reversed ? GROUP - 1 - l##_k : l##_k, l##_run = 1;  \
-         l##_run; l##_run = 0)
-#define SYNC()
+// Host build: the harness runs each lane of a warp as a coroutine of its own
+// and resumes the lanes of a phase one after another, in an order it chooses;
+// SYNC() ends the running lane's phase and returns to the harness.
+extern int phys_host_lane;   // the running lane's index in its warp
+void phys_host_sync();
+#define FOR_LANES(l) for (int l = phys_host_lane % G, l##_run = 1; l##_run; l##_run = 0)
+#define SYNC() ((void)mask, phys_host_sync())
 #endif
 
 // ---- per-env workspace (shared memory), sized from the model ----
@@ -526,17 +555,17 @@ PHYS_DEV void store16(const float* src, float* dst, int n) {
 
 
 // ---------------------------------------------------------------- per-env step
-// One env's control step by the lanes of its group.  `ws` is the env's
+// One env's control step by the G lanes of its group.  `ws` is the env's
 // workspace (ws_layout); on entry it holds the state row (S), the scaled
 // actions (ACT), FRIC and DELTA; on exit S holds the new state, TAU the last
 // substep's torques, GF / FP / FV the report.  State rows: [pos(3), quat(4),
 // jpos(nj), lvel(3), avel(3), jvel(nj), anchors(2 ng)].  `tf` and `ti` are the
 // model tables (the kernel passes its block's shared-memory copy).  ROUGH
 // selects B2: contacts against the heightfield `tex` (B1 contacts the plane at
-// tf[TF_H0]).
-template <bool ROUGH>
+// tf[TF_H0]).  `mask` names the lanes of the warp whose env exists (SYNC()).
+template <bool ROUGH, int G>
 PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __restrict__ tex,
-                               float* ws) {
+                               float* ws, unsigned mask) {
   const int nb = ti[TI_NB], nj = ti[TI_NJ], ng = ti[TI_NG], nf = ti[TI_NF];
   const int decim = ti[TI_DECIM], ctrl = ti[TI_CTRL];
   const WsLayout L = ws_layout(nb, nj, ng, nf, ROUGH);
@@ -559,7 +588,7 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
   // base's inertia is never read) ----
   FOR_LANES(l) {
     if (!fix)
-      for (int k = l; k < 36; k += GROUP) IB0[k] = tf[TF_ISP + k] + delta * tf[TF_IUNIT0 + k];
+      for (int k = l; k < 36; k += G) IB0[k] = tf[TF_ISP + k] + delta * tf[TF_IUNIT0 + k];
   }
   SYNC();
 
@@ -627,7 +656,7 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
 
     // ---- contacts, one geom per lane; terms in the geom's slot ----
     FOR_LANES(l) {
-      for (int g = l; g < ng; g += GROUP) {
+      for (int g = l; g < ng; g += G) {
         const int b = ti[TI_GBODY + g];
         contact_geom<ROUGH>(tf, ti, tex, g, BODY(b, R), BODY(b, P), BODY(b, V), s + AN + 2 * g,
                             gst + GS * g, GC + GC_STR * gslot[g], mu);
@@ -791,7 +820,7 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
     // semi-implicit Euler integration (joints one per lane, base on the last lane) ----
     FOR_LANES(l) {
       if (last) {
-        for (int g = l; g < ng; g += GROUP) {
+        for (int g = l; g < ng; g += G) {
           const int b = ti[TI_GBODY + g];
           const float* go = tf + TF_GOFF + 3 * g;
           const float* st = gst + GS * g;
@@ -837,7 +866,7 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
         s[JV + l] = jv;
         s[7 + l] += dt * jv;
       }
-      if (l == GROUP - 1) {
+      if (l == G - 1) {
         float* pos = s;
         float* q = s + 3;
         float* lv = s + LV;
@@ -879,9 +908,9 @@ PHYS_DEV void env_control_step(const float* tf, const int* ti, const float4* __r
 #undef BODY
 }
 
-// Shared memory of one block: ENVS_PER_BLOCK workspaces and a copy of the tables.
-PHYS_HD int block_shared_bytes(int ws_bytes) {
-  return ENVS_PER_BLOCK * ws_bytes + 4 * (TF_SIZE + TI_FULL);
+// Shared memory of one block: its envs' workspaces and a copy of the tables.
+PHYS_HD int block_shared_bytes(int ws_bytes, int envs) {
+  return envs * ws_bytes + 4 * (TF_SIZE + TI_FULL);
 }
 
 extern "C" {
@@ -889,6 +918,10 @@ extern "C" {
 int physics_workspace_bytes(int nb, int nj, int ng, int nf, int rough) {
   return 4 * ws_layout(nb, nj, ng, nf, rough != 0).words;
 }
+// Bytes of shared memory of one block of `envs` envs of `ws_bytes` each.
+int physics_block_bytes(int ws_bytes, int envs) { return block_shared_bytes(ws_bytes, envs); }
+// Envs one block may hold at G = `group` lanes per env (32 or 16).
+int physics_max_block_envs(int group) { return MAX_BLOCK_ENVS(group); }
 // Entries of the int table with its schedule (TI_FULL).
 int physics_int_table_size() { return TI_FULL; }
 // Present in sources that read TI_FIX (the fixed-base regime); returns 1.
@@ -896,15 +929,17 @@ int physics_has_fixed_base() { return 1; }
 }  // extern "C"
 
 #ifdef __CUDACC__
-// One warp per env, ENVS_PER_BLOCK envs per block, the tail block masked.
-// ROUGH = false is B1 (flat ground, `tex` unused), true is B2 (heightfield `tex`).
-template <bool ROUGH>
-__global__ void __launch_bounds__(GROUP * ENVS_PER_BLOCK, BLOCKS_PER_SM(ROUGH)) decimated_step_kernel(
+// G lanes per env (G = 32: a warp; 16: half a warp), `envs` envs per block
+// (ENVS_PER_BLOCK at G = 32), the tail block masked.  ROUGH = false is B1
+// (flat ground, `tex` unused), true is B2 (heightfield `tex`).
+template <bool ROUGH, int G>
+__global__ void __launch_bounds__(G * MAX_BLOCK_ENVS(G), BLOCKS_PER_SM(ROUGH, G)) decimated_step_kernel(
     const float* __restrict__ state_in, const float* __restrict__ act,
     const float* __restrict__ fric, const float* __restrict__ delta,
     const float* __restrict__ tf, const int* __restrict__ ti, const float4* __restrict__ tex,
     float* __restrict__ state_out, float* __restrict__ tau_out, float* __restrict__ gf_out,
-    float* __restrict__ fpos_out, float* __restrict__ fvel_out, int B) {
+    float* __restrict__ fpos_out, float* __restrict__ fvel_out, int B, int envs) {
+  const int EPB = G == WARP ? ENVS_PER_BLOCK : envs;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   PROF_STAMP();
@@ -912,15 +947,15 @@ __global__ void __launch_bounds__(GROUP * ENVS_PER_BLOCK, BLOCKS_PER_SM(ROUGH)) 
   const WsLayout L = ws_layout(ti[TI_NB], nj, ng, nf, ROUGH);
   unsigned dyn;
   asm volatile("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
-  if ((unsigned)block_shared_bytes(4 * L.words) > dyn) __trap();   // workspace size not set
-  float* tfs = smem + ENVS_PER_BLOCK * L.words;
+  if ((unsigned)block_shared_bytes(4 * L.words, EPB) > dyn) __trap();   // workspace size not set
+  float* tfs = smem + EPB * L.words;
   int* tis = reinterpret_cast<int*>(tfs + TF_SIZE);
   const int NS = 13 + 2 * nj + 2 * ng;
-  const int e0 = blockIdx.x * ENVS_PER_BLOCK;
-  const int ne = min(ENVS_PER_BLOCK, B - e0);
+  const int e0 = blockIdx.x * EPB;
+  const int ne = min(EPB, B - e0);
   const float ascale = tf[TF_ASCALE];
   const int tid = threadIdx.x;
-  constexpr int NT = GROUP * ENVS_PER_BLOCK;
+  const int NT = G * EPB;
   // the tables, and the envs' inputs with the env index fastest, so
   // neighbouring threads read neighbouring addresses (the loops unrolled, so
   // each thread has its loads in flight together)
@@ -931,15 +966,28 @@ __global__ void __launch_bounds__(GROUP * ENVS_PER_BLOCK, BLOCKS_PER_SM(ROUGH)) 
   if (tid < TF_SIZE % 4) tfs[TF_SIZE / 4 * 4 + tid] = tf[TF_SIZE / 4 * 4 + tid];
 #pragma unroll
   for (int x = tid; x < TI_FULL; x += NT) tis[x] = ti[x];
+  // each env's rows: element x = r EPB + k of an env-fastest order goes to
+  // thread x % NT.  At G = 32, EPB is a constant and the threads walk x; at
+  // G = 16 it is known only at run time, so thread tid keeps env k = tid % EPB
+  // and walks rows tid / EPB + G i (NT = G EPB): no division in the loops
+  if constexpr (G == WARP) {
 #pragma unroll 8
-  for (int x = tid; x < NS * ENVS_PER_BLOCK; x += NT) {
-    const int r = x / ENVS_PER_BLOCK, k = x % ENVS_PER_BLOCK;
-    if (k < ne) smem[k * L.words + L.S + r] = state_in[(size_t)r * B + e0 + k];
-  }
+    for (int x = tid; x < NS * EPB; x += NT) {
+      const int r = x / EPB, k = x % EPB;
+      if (k < ne) smem[k * L.words + L.S + r] = state_in[(size_t)r * B + e0 + k];
+    }
 #pragma unroll 4
-  for (int x = tid; x < nj * ENVS_PER_BLOCK; x += NT) {
-    const int j = x / ENVS_PER_BLOCK, k = x % ENVS_PER_BLOCK;
-    if (k < ne) smem[k * L.words + L.ACT + j] = act[(size_t)j * B + e0 + k] * ascale;
+    for (int x = tid; x < nj * EPB; x += NT) {
+      const int j = x / EPB, k = x % EPB;
+      if (k < ne) smem[k * L.words + L.ACT + j] = act[(size_t)j * B + e0 + k] * ascale;
+    }
+  } else if (tid % EPB < ne) {
+    const int k = tid % EPB, r0 = tid / EPB;
+    float* const ws = smem + k * L.words;
+#pragma unroll 8
+    for (int r = r0; r < NS; r += G) ws[L.S + r] = state_in[(size_t)r * B + e0 + k];
+#pragma unroll 4
+    for (int j = r0; j < nj; j += G) ws[L.ACT + j] = act[(size_t)j * B + e0 + k] * ascale;
   }
   if (tid < ne) {
     smem[tid * L.words + L.FRIC] = fric[e0 + tid];
@@ -947,34 +995,69 @@ __global__ void __launch_bounds__(GROUP * ENVS_PER_BLOCK, BLOCKS_PER_SM(ROUGH)) 
   }
   __syncthreads();
   PROF_STAMP();
-  const int w = tid / GROUP;
-  if (w < ne) env_control_step<ROUGH>(tfs, tis, tex, smem + w * L.words);
+  const int w = tid / G;                       // the thread's env in the block
+  // the warp's groups whose env exists: lanes of an absent env (the tail
+  // block's last warp at G = 16) skip the step, so its barriers name the others
+  const int nw = min(WARP / G, ne - tid / WARP * (WARP / G));
+  const unsigned mask = nw >= WARP / G ? 0xffffffffu : nw > 0 ? (1u << (nw * G)) - 1u : 0u;
+  if (w < ne) env_control_step<ROUGH, G>(tfs, tis, tex, smem + w * L.words, mask);
   __syncthreads();
   PROF_STAMP();
-  // stage out
-  for (int x = tid; x < NS * ENVS_PER_BLOCK; x += NT) {
-    const int r = x / ENVS_PER_BLOCK, k = x % ENVS_PER_BLOCK;
-    if (k < ne) state_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.S + r];
-  }
-  for (int x = tid; x < nj * ENVS_PER_BLOCK; x += NT) {
-    const int j = x / ENVS_PER_BLOCK, k = x % ENVS_PER_BLOCK;
-    if (k < ne) tau_out[(size_t)j * B + e0 + k] = smem[k * L.words + L.TAU + j];
-  }
-  for (int x = tid; x < 3 * ng * ENVS_PER_BLOCK; x += NT) {
-    const int r = x / ENVS_PER_BLOCK, k = x % ENVS_PER_BLOCK;
-    if (k < ne) gf_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.GF + r];
-  }
-  for (int x = tid; x < 3 * nf * ENVS_PER_BLOCK; x += NT) {
-    const int r = x / ENVS_PER_BLOCK, k = x % ENVS_PER_BLOCK;
-    if (k < ne) {
-      fpos_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.FP + r];
-      fvel_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.FV + r];
+  // stage out, as the stage in
+  if constexpr (G == WARP) {
+    for (int x = tid; x < NS * EPB; x += NT) {
+      const int r = x / EPB, k = x % EPB;
+      if (k < ne) state_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.S + r];
+    }
+    for (int x = tid; x < nj * EPB; x += NT) {
+      const int j = x / EPB, k = x % EPB;
+      if (k < ne) tau_out[(size_t)j * B + e0 + k] = smem[k * L.words + L.TAU + j];
+    }
+    for (int x = tid; x < 3 * ng * EPB; x += NT) {
+      const int r = x / EPB, k = x % EPB;
+      if (k < ne) gf_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.GF + r];
+    }
+    for (int x = tid; x < 3 * nf * EPB; x += NT) {
+      const int r = x / EPB, k = x % EPB;
+      if (k < ne) {
+        fpos_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.FP + r];
+        fvel_out[(size_t)r * B + e0 + k] = smem[k * L.words + L.FV + r];
+      }
+    }
+  } else if (tid % EPB < ne) {
+    const int k = tid % EPB, r0 = tid / EPB;
+    const float* const ws = smem + k * L.words;
+    const size_t e = e0 + k;
+    for (int r = r0; r < NS; r += G) state_out[(size_t)r * B + e] = ws[L.S + r];
+    for (int j = r0; j < nj; j += G) tau_out[(size_t)j * B + e] = ws[L.TAU + j];
+    for (int r = r0; r < 3 * ng; r += G) gf_out[(size_t)r * B + e] = ws[L.GF + r];
+    for (int r = r0; r < 3 * nf; r += G) {
+      fpos_out[(size_t)r * B + e] = ws[L.FP + r];
+      fvel_out[(size_t)r * B + e] = ws[L.FV + r];
     }
   }
   PROF_STAMP();
 }
 
 static int g_ws_bytes = 0;   // one env's workspace, set by physics_set_workspace_bytes
+
+// One launch of the ROUGH kernel at G lanes per env, `envs` envs per block, on
+// `stream`.
+template <bool ROUGH, int G>
+static int launch_step(const float* state_in, const float* act, const float* fric,
+                       const float* delta, const float* tf, const int* ti, const float* tex,
+                       float* state_out, float* tau_out, float* gf_out, float* fpos_out,
+                       float* fvel_out, int B, int envs, void* stream) {
+  if (B <= 0) return 0;
+  if (g_ws_bytes <= 0 || envs < 1 || envs > MAX_BLOCK_ENVS(G)
+      || (G == WARP && envs != ENVS_PER_BLOCK))
+    return (int)cudaErrorInvalidValue;
+  decimated_step_kernel<ROUGH, G><<<(B + envs - 1) / envs, G * envs,
+                                    block_shared_bytes(g_ws_bytes, envs), (cudaStream_t)stream>>>(
+      state_in, act, fric, delta, tf, ti, reinterpret_cast<const float4*>(tex), state_out,
+      tau_out, gf_out, fpos_out, fvel_out, B, envs);
+  return (int)cudaGetLastError();
+}
 
 extern "C" {
 
@@ -986,39 +1069,73 @@ int physics_table_layout(int* out) {
 }
 
 // Set the per-env workspace (bytes, physics_workspace_bytes of the model) of
-// the next launches; a block (ENVS_PER_BLOCK workspaces and the tables) above
-// 48 KB raises both kernels' dynamic shared-memory limit.  Returns a cudaError_t.
+// the next launches; a block above 48 KB raises its kernel's dynamic
+// shared-memory limit (the packed kernels': to their largest block, or to all
+// the shared memory a block of the card may take).  Returns a cudaError_t.
 int physics_set_workspace_bytes(int bytes) {
   if (bytes == g_ws_bytes) return 0;
   if (bytes <= 0) return (int)cudaErrorInvalidValue;
-  const int block = block_shared_bytes(bytes);
-  if (block > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(decimated_step_kernel<false>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, block);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(decimated_step_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, block);
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int block = block_shared_bytes(bytes, ENVS_PER_BLOCK);
+  const int packed = min(block_shared_bytes(bytes, PACKED_MAX_ENVS), most);
+  const struct { const void* k; int bytes; } kernels[] = {
+      {(const void*)decimated_step_kernel<false, WARP>, block},
+      {(const void*)decimated_step_kernel<true, WARP>, block},
+      {(const void*)decimated_step_kernel<false, 16>, packed},
+      {(const void*)decimated_step_kernel<true, 16>, packed}};
+  for (const auto& kb : kernels) {
+    if (kb.bytes <= 48 * 1024) continue;
+    err = cudaFuncSetAttribute(kb.k, cudaFuncAttributeMaxDynamicSharedMemorySize, kb.bytes);
     if (err != cudaSuccess) return (int)err;
   }
   g_ws_bytes = bytes;
   return 0;
 }
 
-// One flat control step (B1) for B envs on `stream`.  All pointers are device
-// pointers to contiguous float32 (int32 for ti) SoA arrays [rows, B].  Returns
-// the launch's cudaGetLastError().
+// Envs an SM holds at once for the ROUGH kernel at G = `group` lanes per env,
+// `envs` envs per block and the workspace set last (the occupancy
+// calculator); 0 where it cannot run.
+int physics_resident_envs(int rough, int group, int envs) {
+  if (g_ws_bytes <= 0) return 0;
+  const void* k = group == WARP ? (rough ? (const void*)decimated_step_kernel<true, WARP>
+                                         : (const void*)decimated_step_kernel<false, WARP>)
+                                : (rough ? (const void*)decimated_step_kernel<true, 16>
+                                         : (const void*)decimated_step_kernel<false, 16>);
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, group * envs,
+                                                    block_shared_bytes(g_ws_bytes, envs))
+      != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return blocks * envs;
+}
+
+// One flat control step (B1) for B envs on `stream`, one warp per env.  All
+// pointers are device pointers to contiguous float32 (int32 for ti) SoA arrays
+// [rows, B].  Returns the launch's cudaGetLastError().
 int physics_decimated_step(const float* state_in, const float* act, const float* fric,
                            const float* delta, const float* tf, const int* ti,
                            float* state_out, float* tau_out, float* gf_out, float* fpos_out,
                            float* fvel_out, int B, void* stream) {
-  if (B <= 0) return 0;
-  if (g_ws_bytes <= 0) return (int)cudaErrorInvalidValue;
-  decimated_step_kernel<false><<<(B + ENVS_PER_BLOCK - 1) / ENVS_PER_BLOCK,
-                                 GROUP * ENVS_PER_BLOCK, block_shared_bytes(g_ws_bytes),
-                                 (cudaStream_t)stream>>>(
-      state_in, act, fric, delta, tf, ti, nullptr, state_out, tau_out, gf_out, fpos_out,
-      fvel_out, B);
-  return (int)cudaGetLastError();
+  return launch_step<false, WARP>(state_in, act, fric, delta, tf, ti, nullptr, state_out, tau_out,
+                                  gf_out, fpos_out, fvel_out, B, ENVS_PER_BLOCK, stream);
+}
+
+// As physics_decimated_step, two envs per warp (a model of at most 16 bodies
+// whose joints and base fit 16 lanes), `envs` envs per block (at most
+// PACKED_MAX_ENVS, and a block's shared memory).
+int physics_decimated_step_packed(const float* state_in, const float* act, const float* fric,
+                                  const float* delta, const float* tf, const int* ti,
+                                  float* state_out, float* tau_out, float* gf_out,
+                                  float* fpos_out, float* fvel_out, int B, int envs,
+                                  void* stream) {
+  return launch_step<false, 16>(state_in, act, fric, delta, tf, ti, nullptr, state_out, tau_out,
+                                gf_out, fpos_out, fvel_out, B, envs, stream);
 }
 
 // One rough control step (B2): as physics_decimated_step, plus `tex`, the
@@ -1029,14 +1146,18 @@ int physics_decimated_step_rough(const float* state_in, const float* act, const 
                                  const float* tex, float* state_out, float* tau_out,
                                  float* gf_out, float* fpos_out, float* fvel_out, int B,
                                  void* stream) {
-  if (B <= 0) return 0;
-  if (g_ws_bytes <= 0) return (int)cudaErrorInvalidValue;
-  decimated_step_kernel<true><<<(B + ENVS_PER_BLOCK - 1) / ENVS_PER_BLOCK,
-                                GROUP * ENVS_PER_BLOCK, block_shared_bytes(g_ws_bytes),
-                                (cudaStream_t)stream>>>(
-      state_in, act, fric, delta, tf, ti, reinterpret_cast<const float4*>(tex), state_out,
-      tau_out, gf_out, fpos_out, fvel_out, B);
-  return (int)cudaGetLastError();
+  return launch_step<true, WARP>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
+                                 gf_out, fpos_out, fvel_out, B, ENVS_PER_BLOCK, stream);
+}
+
+// As physics_decimated_step_rough, two envs per warp, `envs` per block.
+int physics_decimated_step_rough_packed(const float* state_in, const float* act,
+                                        const float* fric, const float* delta, const float* tf,
+                                        const int* ti, const float* tex, float* state_out,
+                                        float* tau_out, float* gf_out, float* fpos_out,
+                                        float* fvel_out, int B, int envs, void* stream) {
+  return launch_step<true, 16>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
+                               gf_out, fpos_out, fvel_out, B, envs, stream);
 }
 
 #ifdef PHYS_PROFILE

@@ -36,7 +36,9 @@ this package.  The model reaches the kernel as two small device tables, one of
 floats and one of ints, whose layout mirrors the offsets in the CUDA source.
 The kernel runs one warp per env with the env's working set in shared memory;
 :func:`workspace_words` mirrors its layout, so the wrapper sizes the launch
-from the model and refuses a model whose block would not fit.
+from the model and refuses a model whose block would not fit.  Where a
+model's bodies fit half a warp and a launch fills more than one wave of the
+card, a warp runs two envs (:meth:`DecimatedEnvStep.launch_shape`).
 """
 from __future__ import annotations
 
@@ -107,7 +109,15 @@ TF_SIZE = TF_GMAX + 2
 CONTROL_TYPES = {"P": 0, "T": 1}
 
 # launch geometry and per-env workspace, mirrored from csrc/physics_step.cu
-ENVS_PER_BLOCK = 4                      # one warp per env
+WARP = 32                               # lanes per env: one warp per env
+ENVS_PER_BLOCK = 4
+PACKED_GROUP = 16                       # lanes per env where a warp runs two envs
+PACKED_ENVS_PER_BLOCK = 8               # a packed block below FULL_BLOCK_WAVES
+PACKED_MAX_ENVS = 20                    # envs of a packed block at most (10 warps)
+# waves of full blocks from which a launch takes them: on an H100 (132 SMs)
+# blocks of 8 were faster at 3.1-3.3 such waves (8192 envs), full blocks from
+# 3.9 (B1) and 4.9 (B2) waves up, B1 at 6.2 a tie
+FULL_BLOCK_WAVES = 4
 SMEM_PER_BLOCK = 232448                 # shared memory one H100 block can use (227 KB)
 BSTR, GC_STR = 92, 28                   # words per body block, per geom's terms
 
@@ -172,6 +182,20 @@ def load_library(source: str = SOURCE, extra_flags=()) -> ctypes.CDLL:
         lib.physics_decimated_step_rough.argtypes = ([ctypes.c_void_p] * 12
                                                      + [ctypes.c_int, ctypes.c_void_p])
         lib.physics_decimated_step_rough.restype = ctypes.c_int
+        lib.packed = hasattr(lib, "physics_resident_envs")     # an older source: a warp per env
+        if lib.packed:
+            lib.physics_decimated_step_packed.restype = ctypes.c_int
+            lib.physics_decimated_step_rough_packed.restype = ctypes.c_int
+            lib.physics_decimated_step_packed.argtypes = (
+                lib.physics_decimated_step.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p])
+            lib.physics_decimated_step_rough_packed.argtypes = (
+                lib.physics_decimated_step_rough.argtypes[:-1] + [ctypes.c_int, ctypes.c_void_p])
+            lib.physics_resident_envs.argtypes = [ctypes.c_int] * 3
+            lib.physics_resident_envs.restype = ctypes.c_int
+            most = lib.physics_max_block_envs(PACKED_GROUP)
+            if most != PACKED_MAX_ENVS:
+                raise RuntimeError(f"kernel's packed block of {most} envs at most != wrapper's "
+                                   f"{PACKED_MAX_ENVS}")
         try:
             lib.physics_workspace_bytes.argtypes = [ctypes.c_int] * 5
             lib.physics_workspace_bytes.restype = ctypes.c_int
@@ -211,14 +235,15 @@ def workspace_words(nb: int, nj: int, ng: int, nf: int, rough: bool = False) -> 
     return up4(o)
 
 
-def block_shared_bytes(nb: int, nj: int, ng: int, nf: int, rough: bool = False) -> int:
-    """Dynamic shared memory of one block: ``ENVS_PER_BLOCK`` env workspaces
-    and a copy of the model tables; raises ``ValueError`` with the model's
-    sizes if a block cannot hold it."""
-    nbytes = ENVS_PER_BLOCK * 4 * workspace_words(nb, nj, ng, nf, rough) + 4 * (TF_SIZE + TI_FULL)
+def block_shared_bytes(nb: int, nj: int, ng: int, nf: int, rough: bool = False,
+                       envs: int = ENVS_PER_BLOCK) -> int:
+    """Dynamic shared memory of one block of ``envs`` envs (``ENVS_PER_BLOCK``
+    at a warp per env): their workspaces and a copy of the model tables;
+    raises ``ValueError`` with the model's sizes if a block cannot hold it."""
+    nbytes = envs * 4 * workspace_words(nb, nj, ng, nf, rough) + 4 * (TF_SIZE + TI_FULL)
     if nbytes > SMEM_PER_BLOCK:
         raise ValueError(f"model sizes nb={nb} nj={nj} ng={ng} nf={nf}: a block of "
-                         f"{ENVS_PER_BLOCK} envs needs {nbytes} bytes of shared memory, "
+                         f"{envs} envs needs {nbytes} bytes of shared memory, "
                          f"more than the {SMEM_PER_BLOCK} a block can use")
     return nbytes
 
@@ -298,11 +323,13 @@ class DecimatedEnvStep:
     launches of all instances of the class, ``rough_launches`` the B2
     launches, ``fixed_launches`` the launches of either with a fixed base
     (which count in neither of the others; :class:`EnvStep` keeps its
-    own)."""
+    own); ``packed_launches`` counts, besides, the launches of any of them
+    that ran two envs per warp."""
 
     launches = 0
     rough_launches = 0
     fixed_launches = 0
+    packed_launches = 0
 
     def __init__(self, model: RobotModel, sp: SimParams, terrain: TerrainData, decimation: int,
                  p_gains, d_gains, default_dof_pos, action_scale: float,
@@ -326,6 +353,14 @@ class DecimatedEnvStep:
         block_shared_bytes(nb, nj, ng, nf, self.rough)     # raises if a block cannot hold it
         self.ws_bytes = 4 * workspace_words(nb, nj, ng, nf, self.rough)
         self._ws_checked = set()
+        # half a warp holds the model: a lane per body, per joint and the
+        # base's integration on the group's last lane (a packed block of 8
+        # envs of any model under the maxima fits a block's shared memory)
+        self.packable = nb <= PACKED_GROUP and nj + 1 <= PACKED_GROUP
+        # envs of a full packed block: as many as a block's shared memory holds
+        self.full_envs = min(PACKED_MAX_ENVS,
+                             (SMEM_PER_BLOCK - 4 * (TF_SIZE + TI_FULL)) // self.ws_bytes)
+        self._resident = {}
         if self.rough and terrain.shape[0] * terrain.shape[1] >= 2 ** 31:
             raise ValueError(f"heightfield {terrain.shape} too large for the kernel's int index")
         self.model, self.sp, self.terrain = model, sp, terrain
@@ -454,11 +489,42 @@ class DecimatedEnvStep:
                     gf=torch.empty(3 * ng, B, device=dev), fpos=torch.empty(3 * nf, B, device=dev),
                     fvel=torch.empty(3 * nf, B, device=dev))
 
+    def launch_shape(self, B: int, device: torch.device, lib: ctypes.CDLL):
+        """``(lanes per env, envs per block)`` of a launch of ``B`` envs.  A
+        wave is the card's SMs times the envs an SM holds at once of a layout
+        (the occupancy calculator at this model's workspace).  ``B`` of at most
+        one wave at a warp per env gives each env a warp, where its latency
+        rules: ``(WARP, ENVS_PER_BLOCK)``.  Above that, where the model fits
+        half a warp and ``lib`` has the packed kernels, two envs per warp
+        (``PACKED_GROUP``): in blocks of ``full_envs`` (one per SM) from
+        ``FULL_BLOCK_WAVES`` waves of them up, where a part-filled last wave
+        costs less than the residency gains, else of
+        ``PACKED_ENVS_PER_BLOCK``; but a warp per env where that packed
+        layout holds fewer envs per SM (a large workspace: Go2's 56 geoms).
+        Call after the library's workspace is set to this model's."""
+        if not (self.packable and lib.packed):
+            return WARP, ENVS_PER_BLOCK
+        key = (id(lib), str(device))
+        if key not in self._resident:
+            self._resident[key] = (
+                torch.cuda.get_device_properties(device).multi_processor_count,
+                lib.physics_resident_envs(int(self.rough), WARP, ENVS_PER_BLOCK),
+                lib.physics_resident_envs(int(self.rough), PACKED_GROUP, PACKED_ENVS_PER_BLOCK),
+                lib.physics_resident_envs(int(self.rough), PACKED_GROUP, self.full_envs))
+        sms, warp, part, full = self._resident[key]
+        if B <= sms * warp:
+            return WARP, ENVS_PER_BLOCK
+        if full > 0 and B >= FULL_BLOCK_WAVES * sms * full:
+            envs, resident = self.full_envs, full
+        else:
+            envs, resident = PACKED_ENVS_PER_BLOCK, part
+        return (PACKED_GROUP, envs) if resident >= warp else (WARP, ENVS_PER_BLOCK)
+
     def run(self, bufs: dict, lib: Optional[ctypes.CDLL] = None):
         """One launch of the kernel, B2 on a heightfield, else B1, on buffers
-        from :meth:`pack`, on the current stream; counts it.  ``lib`` is a
-        library from :func:`load_library`, by default the package's own
-        source."""
+        from :meth:`pack`, on the current stream, in :meth:`launch_shape`'s
+        layout; counts it.  ``lib`` is a library from
+        :func:`load_library`, by default the package's own source."""
         lib = lib or load_library()
         if self.model.fix_base and not lib.fixed_base:
             raise RuntimeError("this kernel build has no fixed-base regime (TI_FIX)")
@@ -479,12 +545,18 @@ class DecimatedEnvStep:
         ins = [bufs[k].data_ptr() for k in ("state", "act", "fric", "delta")]
         ins += [t["tf"].data_ptr(), t["ti"].data_ptr()]
         outs = [bufs[k].data_ptr() for k in ("out", "tau", "gf", "fpos", "fvel")]
+        group, envs = self.launch_shape(bufs["B"], dev, lib)
+        packed = group != WARP
+        if self.rough:
+            ins.append(t["tex"].data_ptr())
         with span("physics.launch"):
-            if self.rough:
-                rc = lib.physics_decimated_step_rough(*ins, t["tex"].data_ptr(), *outs, bufs["B"],
-                                                      stream)
+            if packed:
+                fn = (lib.physics_decimated_step_rough_packed if self.rough
+                      else lib.physics_decimated_step_packed)
+                rc = fn(*ins, *outs, bufs["B"], envs, stream)
             else:
-                rc = lib.physics_decimated_step(*ins, *outs, bufs["B"], stream)
+                fn = lib.physics_decimated_step_rough if self.rough else lib.physics_decimated_step
+                rc = fn(*ins, *outs, bufs["B"], stream)
         if rc != 0:
             raise RuntimeError(f"physics kernel {'B2' if self.rough else 'B1'} launch failed: "
                                f"cudaError {rc}")
@@ -494,6 +566,8 @@ class DecimatedEnvStep:
             type(self).rough_launches += 1
         else:
             type(self).launches += 1
+        if packed:
+            type(self).packed_launches += 1
 
     def unpack(self, bufs: dict):
         """``(new_phys, tau_last, report)`` as views of :meth:`pack`'s outputs."""
@@ -536,11 +610,13 @@ class EnvStep(DecimatedEnvStep):
     1; the torques are clamped to the model's limits as in the control step.
     Called as ``(phys, tau, env_params) -> (new_phys, report)``.
     ``EnvStep.launches`` counts its B1 launches, ``EnvStep.rough_launches``
-    its B2 launches, ``EnvStep.fixed_launches`` those with a fixed base."""
+    its B2 launches, ``EnvStep.fixed_launches`` those with a fixed base,
+    ``EnvStep.packed_launches`` those of any that ran two envs per warp."""
 
     launches = 0
     rough_launches = 0
     fixed_launches = 0
+    packed_launches = 0
 
     def __init__(self, model: RobotModel, sp: SimParams, terrain: TerrainData):
         zeros = np.zeros(model.nj, np.float32)

@@ -17,7 +17,13 @@ root, for example against an older commit's source:
   python -m extended_legged_gym_tpu_torch.scripts.bench_kernel --source checkout/old.cu \
       --source extended_legged_gym_tpu_torch/csrc/physics_step.cu
 
-Without ``--source`` it times ``csrc/physics_step.cu``.  ``--task T`` (one
+Without ``--source`` it times ``csrc/physics_step.cu``.  ``--flat-batches``
+and ``--rough-batches`` replace B1's and B2's batches, for example the
+sampling-MPC benchmark cell's B1 batches (``--flat-batches 262144 2112 192
+64``) and the rough PPO cell's B2 (``--rough-batches 32768``).  Each batch
+reports the launch shape the wrapper gave each source (``launch_shape``: lanes
+per env, 32 for a warp per env or 16 for two envs per warp, and envs per
+block).  ``--task T`` (one
 or more) times the fused step of registered tasks instead, at ``--batches``
 (default 4096): B1 on a plane, B2 on the task's own curriculum grid from
 its spawn origins, the fixed-base regime from states at rest at the task's
@@ -159,6 +165,8 @@ def main():
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--task", action="append", default=None)
     ap.add_argument("--batches", type=int, nargs="+", default=[4096])
+    ap.add_argument("--flat-batches", type=int, nargs="+", default=list(FLAT_BATCHES))
+    ap.add_argument("--rough-batches", type=int, nargs="+", default=list(ROUGH_BATCHES))
     args = ap.parse_args()
     sources = args.source or [pk.SOURCE]
     dev = torch.device("cuda")
@@ -169,12 +177,12 @@ def main():
                       lambda B, env=envs[t]: task_states(env, B, B, dev)) for t in args.task)
     else:
         flat = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1), device=dev).decimated_step
-        renv = rough_env(max(ROUGH_BATCHES), dev)
+        renv = rough_env(max(args.rough_batches), dev)
         origins = renv.reset_all(seed=0).env_origins
         h = STAND_HEIGHT["anymal_c"]
-        runs = (("B1", flat, FLAT_BATCHES,
+        runs = (("B1", flat, tuple(args.flat_batches),
                  lambda B: near_standing(flat.model, B, B, dev, height=h)),
-                ("B2", renv.decimated_step, ROUGH_BATCHES,
+                ("B2", renv.decimated_step, tuple(args.rough_batches),
                  lambda B: near_standing(renv.model, B, B, dev, origins, h)))
     libs, ptxas = {}, {}
     for src in sources:
@@ -184,6 +192,7 @@ def main():
     ms = {src: {name: {B: [] for B in batches} for name, _, batches, _ in runs}
           for src in sources}
     bounds = {name: {} for name, _, _, _ in runs}
+    groups = {src: {name: {} for name, _, _, _ in runs} for src in sources}
     same = {src: {name: {} for name, _, _, _ in runs} for src in sources[1:]}
     outs = ("out", "tau", "gf", "fpos", "fvel")
     for name, step, batches, states in runs:
@@ -198,6 +207,7 @@ def main():
             first = None
             for src in sources:
                 step.run(bufs, lib=libs[src])
+                groups[src][name][B] = step.launch_shape(B, dev, libs[src])
                 got = [bufs[k].clone() for k in outs]
                 if first is None:
                     first = got
@@ -209,7 +219,8 @@ def main():
                       "bounds": bounds,
                       "kernels": [
         {"source": src, "ptxas": ptxas[src], "shared_workspace": libs[src].shared_workspace,
-         "ms_per_launch": ms[src], "same_bits": same.get(src)} for src in sources]}))
+         "ms_per_launch": ms[src], "launch_shape": groups[src], "same_bits": same.get(src)}
+        for src in sources]}))
 
 
 if __name__ == "__main__":

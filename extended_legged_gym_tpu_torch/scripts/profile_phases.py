@@ -6,7 +6,10 @@ launch of B1 (flat, ANYmal-C, B envs) and of B2 (rough grid) after a
 warm-up gives one stamp list each (block 0, lane 0: the kernel's entry, the
 end of its staging, every phase boundary, the end of the block's work and of
 its stores); the script names the phases from the model's tree (its depth
-levels) and sums them over the substeps.  It also counts each kernel's SASS
+levels) and sums them over the substeps, and reports the launch shape the
+wrapper chose at B (``launch_shape``: lanes per env, 32 for a warp per env or
+16 for two envs per warp, and envs per block) with the envs an SM holds at
+once.  It also counts each kernel's SASS
 instructions in the plain build (``cuobjdump``).  The stamps cost a few
 cycles each.  Usage, from the repository root:
 
@@ -82,7 +85,10 @@ def profile(lib, step, states, reps=3):
     for name, c in zip(names, cyc):
         by_name[name] = by_name.get(name, 0) + int(c)
     per_sub = int(cyc[2:-2].sum()) // step.decimation
-    return {"cycles_launch": int(stamps[-1] - stamps[0]), "cycles_per_substep": per_sub,
+    group, envs = step.launch_shape(st.base_pos.shape[0], st.base_pos.device, lib)
+    return {"launch_shape": [group, envs],
+            "resident_envs_per_sm": lib.physics_resident_envs(int(step.rough), group, envs),
+            "cycles_launch": int(stamps[-1] - stamps[0]), "cycles_per_substep": per_sub,
             "cycles_by_phase_all_substeps": by_name}
 
 

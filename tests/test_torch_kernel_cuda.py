@@ -4,7 +4,10 @@ card; two launches on the same inputs agree bit for bit.  B1 is also held
 with the ElSpider Air hexapod's tables, and the fixed-base regime with the
 Franka arm's; B1 with A1's and Go2's, B2 with A1's, Go2's, ANYmal-B's,
 Cassie's and the hexapod's on their rough tasks' grids, and the fixed-base
-regime with the hanging hexapod's, its legs in contact.
+regime with the hanging hexapod's, its legs in contact.  Launches of more
+than a wave of envs run two envs per warp: their rows equal the same rows
+launched alone, a warp per env, bit for bit; the hexapod never packs, nor
+Go2 at 4096 envs.
 
 Needs a CUDA card and nvcc; skips without a card.  Imports no JAX, so it runs
 on a machine without it:
@@ -232,3 +235,64 @@ def test_family_kernel_matches_plain_on_card(task):
     torch.cuda.synchronize()
     for k in TOLS:
         assert torch.equal(getattr(sk, k), getattr(again[0], k)), k
+
+
+@pytest.mark.parametrize("terrain,B", [("flat", 262144), ("flat", 2112), ("rough", 32768)])
+def test_packed_rows_equal_rows_launched_alone(terrain, B):
+    """B1 of the sampling MPC at its diffusion (64 x 4096) and polish (64 x
+    33) batches and B2 at the rough PPO fleet (32768 envs): the wrapper packs
+    two envs per warp (more than one wave of envs at a warp per env), and 300
+    rows of the launch equal the same rows launched alone at 300 envs (a warp
+    per env) bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    from extended_legged_gym_tpu_torch.robots.anymal_c_traj import (AnymalCTrajGradSampling,
+                                                                   anymal_c_traj_sampling_cfg)
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import near_standing, rough_env
+    from extended_legged_gym_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda")
+    if terrain == "flat":
+        step, origins = AnymalCTrajGradSampling(anymal_c_traj_sampling_cfg(1),
+                                                device=dev).decimated_step, None
+    else:
+        env = rough_env(B, dev)
+        step, origins = env.decimated_step, env.reset_all(seed=0).env_origins
+    counter = "rough_launches" if step.rough else "launches"
+    counts = lambda: (getattr(pk.DecimatedEnvStep, counter), pk.DecimatedEnvStep.packed_launches)
+    st, ep, act = near_standing(step.model, B, B, dev, origins)
+    before = counts()
+    sk, tk, rk = step(st, act, ep)
+    assert counts() == (before[0] + 1, before[1] + 1)
+    idx = torch.randperm(B, generator=torch.Generator().manual_seed(B))[:300].to(dev)
+    rows = lambda x: x[idx]
+    sa, ta, ra = step(tree_map(rows, st), act[idx], tree_map(rows, ep))
+    assert counts() == (before[0] + 2, before[1] + 1)
+    torch.cuda.synchronize()
+    for k in TOLS:
+        assert torch.equal(getattr(sk, k)[idx], getattr(sa, k)), k
+    assert torch.equal(tk[idx], ta)
+    for k in ("geom_forces", "foot_pos", "foot_vel"):
+        assert torch.equal(getattr(rk, k)[idx], getattr(ra, k)), k
+
+
+@pytest.mark.parametrize("task,robot,B", [("elspider_air_flat", "elspider_air", 8192),
+                                           ("go2_flat", "go2", 4096)])
+def test_no_packed_launch_where_it_holds_fewer_envs(task, robot, B):
+    """The hexapod's 19 bodies keep a warp per env at any batch, and Go2's
+    workspace (56 geoms) holds fewer envs per SM in packed blocks of 8 than
+    at a warp per env: B1 at B envs, no packed launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU build")
+    from extended_legged_gym_tpu_torch.scripts.bench_kernel import (STAND_HEIGHT, near_standing,
+                                                                    task_step)
+
+    dev = torch.device("cuda")
+    step = task_step(task, dev)
+    st, ep, act = near_standing(step.model, B, 0, dev, height=STAND_HEIGHT[robot])
+    before = pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.packed_launches
+    step(st, act, ep)
+    torch.cuda.synchronize()
+    assert (pk.DecimatedEnvStep.launches, pk.DecimatedEnvStep.packed_launches) == (
+        before[0] + 1, before[1])
+    assert step.launch_shape(B, dev, pk.load_library()) == (pk.WARP, pk.ENVS_PER_BLOCK)

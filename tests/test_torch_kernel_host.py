@@ -5,13 +5,16 @@ DecimatedEnvStep.plain).
 
 The kernel itself runs only on a card (tests/test_torch_kernel_cuda.py and
 chip_smoke.py cover that); this test keeps the arithmetic of the exact kernel
-source under the CPU gate.  Without __CUDACC__ the source's FOR_LANES runs
-the 32 lanes of each phase one after another and SYNC() is empty, so the
-host build runs the warp-cooperative body itself over a host array that
-stands for the env's shared-memory workspace (filled with NaN first, so a
-read of a word no phase wrote shows).  Running the lanes in reverse order
-must give the same bits: no lane may read what another writes in the same
-phase.  The harness feeds the body the wrapper's own tables and SoA layout.
+source under the CPU gate.  Without __CUDACC__ the harness runs each of a
+warp's 32 lanes as a coroutine (ucontext) with its own registers and stack;
+the source's SYNC() returns to the harness, which resumes the lanes of each
+phase one after another, so the host build runs the warp-cooperative body
+itself, a warp per env (32 lanes) or two envs per warp (16 lanes each), over
+host arrays that stand for the warp's shared-memory workspaces (filled with
+NaN first, so a read of a word no phase wrote shows).  Running the lanes in
+another order (reversed, the two groups swapped, interleaved) must give the
+same bits: no lane may read what another writes in the same phase.  The
+harness feeds the body the wrapper's own tables and SoA layout.
 Each check runs with ANYmal-C's tables (13 bodies, 12 joints, 36 spheres, 4
 feet) and B1's with the ElSpider Air hexapod's (19 bodies, 18 joints, 6
 children at the base, 46 spheres in two 32-lane passes, 6 feet); the
@@ -45,30 +48,83 @@ from extended_legged_gym_tpu_torch.terrain import Terrain, flat_terrain, from_nu
 
 MODEL = "extended_legged_gym_tpu/robots/data/anymal_c.json"
 HARNESS = r"""
+#include <ucontext.h>
 #include "%s"
+#include <algorithm>
 #include <limits>
 #include <vector>
-template <bool ROUGH>
+// A warp of the card: each lane a coroutine on its own stack.  A phase resumes
+// the lanes in `order` one at a time; each runs to its next SYNC() (which
+// returns here) or to the end of its env's step.
+int phys_host_lane = 0;
+static ucontext_t g_sched, g_lane[WARP];
+static bool g_done[WARP];
+static std::vector<char> g_stacks(WARP * (64 << 10));
+static struct { const float *tf, *tex; const int* ti; float* ws; int words; } g_warp;
+void phys_host_sync() { swapcontext(&g_lane[phys_host_lane], &g_sched); }
+template <bool ROUGH, int G>
+static void lane_main() {
+  const int lane = phys_host_lane;
+  env_control_step<ROUGH, G>(g_warp.tf, g_warp.ti, reinterpret_cast<const float4*>(g_warp.tex),
+                             g_warp.ws + lane / G * g_warp.words, 0u);
+  g_done[lane] = true;
+}
+// The lanes of `nenv` envs (G lanes each) through every phase; -1 if lanes
+// disagree on the number of phases.
+template <bool ROUGH, int G>
+static int run_warp(int nenv, const int* order) {
+  const int n = nenv * G;
+  for (int t = 0; t < n; ++t) {
+    getcontext(&g_lane[t]);
+    g_lane[t].uc_stack.ss_sp = g_stacks.data() + (size_t)t * (64 << 10);
+    g_lane[t].uc_stack.ss_size = 64 << 10;
+    g_lane[t].uc_link = &g_sched;
+    makecontext(&g_lane[t], (void (*)())lane_main<ROUGH, G>, 0);
+    g_done[t] = false;
+  }
+  for (;;) {
+    int finished = 0;
+    for (int k = 0; k < WARP; ++k) {
+      const int t = order[k];
+      if (t >= n) continue;
+      phys_host_lane = t;
+      swapcontext(&g_sched, &g_lane[t]);
+      finished += g_done[t];
+    }
+    if (finished) return finished == n ? 0 : -1;
+  }
+}
+template <bool ROUGH, int G>
 int host_loop(const float* state_in, const float* act, const float* fric, const float* delta,
               const float* tf, const int* ti, const float* tex, float* state_out, float* tau_out,
-              float* gf_out, float* fpos_out, float* fvel_out, int B) {
+              float* gf_out, float* fpos_out, float* fvel_out, int B, const int* order) {
   const int nj = ti[TI_NJ], ng = ti[TI_NG], nf = ti[TI_NF];
   const WsLayout L = ws_layout(ti[TI_NB], nj, ng, nf, ROUGH);
-  const int NS = 13 + 2 * nj + 2 * ng;
-  std::vector<float> ws(L.words);
-  for (int e = 0; e < B; ++e) {
+  const int NS = 13 + 2 * nj + 2 * ng, per = WARP / G;
+  std::vector<float> ws(per * L.words);        // the warp's envs side by side, as in a block
+  g_warp.tf = tf; g_warp.ti = ti; g_warp.tex = tex; g_warp.ws = ws.data(); g_warp.words = L.words;
+  for (int e0 = 0; e0 < B; e0 += per) {
+    const int n = std::min(per, B - e0);
     std::fill(ws.begin(), ws.end(), std::numeric_limits<float>::quiet_NaN());
-    for (int r = 0; r < NS; ++r) ws[L.S + r] = state_in[r * B + e];
-    for (int j = 0; j < nj; ++j) ws[L.ACT + j] = act[j * B + e] * tf[TF_ASCALE];
-    ws[L.FRIC] = fric[e];
-    ws[L.DELTA] = delta[e];
-    env_control_step<ROUGH>(tf, ti, reinterpret_cast<const float4*>(tex), ws.data());
-    for (int r = 0; r < NS; ++r) state_out[r * B + e] = ws[L.S + r];
-    for (int j = 0; j < nj; ++j) tau_out[j * B + e] = ws[L.TAU + j];
-    for (int r = 0; r < 3 * ng; ++r) gf_out[r * B + e] = ws[L.GF + r];
-    for (int r = 0; r < 3 * nf; ++r) {
-      fpos_out[r * B + e] = ws[L.FP + r];
-      fvel_out[r * B + e] = ws[L.FV + r];
+    for (int k = 0; k < n; ++k) {
+      float* w = ws.data() + k * L.words;
+      const int e = e0 + k;
+      for (int r = 0; r < NS; ++r) w[L.S + r] = state_in[r * B + e];
+      for (int j = 0; j < nj; ++j) w[L.ACT + j] = act[j * B + e] * tf[TF_ASCALE];
+      w[L.FRIC] = fric[e];
+      w[L.DELTA] = delta[e];
+    }
+    if (run_warp<ROUGH, G>(n, order)) return -1;
+    for (int k = 0; k < n; ++k) {
+      const float* w = ws.data() + k * L.words;
+      const int e = e0 + k;
+      for (int r = 0; r < NS; ++r) state_out[r * B + e] = w[L.S + r];
+      for (int j = 0; j < nj; ++j) tau_out[j * B + e] = w[L.TAU + j];
+      for (int r = 0; r < 3 * ng; ++r) gf_out[r * B + e] = w[L.GF + r];
+      for (int r = 0; r < 3 * nf; ++r) {
+        fpos_out[r * B + e] = w[L.FP + r];
+        fvel_out[r * B + e] = w[L.FV + r];
+      }
     }
   }
   return 0;
@@ -76,14 +132,18 @@ int host_loop(const float* state_in, const float* act, const float* fric, const 
 extern "C" int host_step(const float* state_in, const float* act, const float* fric,
                          const float* delta, const float* tf, const int* ti, const float* tex,
                          float* state_out, float* tau_out, float* gf_out, float* fpos_out,
-                         float* fvel_out, int B, int rough, int lanes_reversed) {
-  phys_lanes_reversed = lanes_reversed;
-  return rough ? host_loop<true>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
-                                 gf_out, fpos_out, fvel_out, B)
-               : host_loop<false>(state_in, act, fric, delta, tf, ti, tex, state_out, tau_out,
-                                  gf_out, fpos_out, fvel_out, B);
+                         float* fvel_out, int B, int rough, int group, const int* order) {
+#define HOST_LOOP(R, G) host_loop<R, G>(state_in, act, fric, delta, tf, ti, tex, state_out, \
+                                        tau_out, gf_out, fpos_out, fvel_out, B, order)
+  if (group == 16) return rough ? HOST_LOOP(true, 16) : HOST_LOOP(false, 16);
+  return rough ? HOST_LOOP(true, WARP) : HOST_LOOP(false, WARP);
+#undef HOST_LOOP
 }
 """
+# orders in which a phase runs the 32 lanes of a warp
+ORDERS = {"forward": list(range(32)), "reversed": list(range(31, -1, -1)),
+          "groups_swapped": list(range(16, 32)) + list(range(16)),
+          "interleaved": [t for k in range(16) for t in (k, 16 + k)]}
 TOLS = dict(base_pos=1e-4, base_quat=1e-4, joint_pos=5e-4, base_lin_vel=2e-2,
             base_ang_vel=2e-2, joint_vel=5e-2, contact_anchor=1e-4)
 
@@ -100,15 +160,22 @@ def host_lib(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(lib), str(src)],
                    check=True, capture_output=True, timeout=300)
     h = ctypes.CDLL(str(lib))
-    h.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+    h.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     h.host_step.restype = ctypes.c_int
     h.physics_workspace_bytes.argtypes = [ctypes.c_int] * 5
     h.physics_workspace_bytes.restype = ctypes.c_int
+    h.physics_block_bytes.argtypes = [ctypes.c_int] * 2
+    h.physics_block_bytes.restype = ctypes.c_int
+    h.physics_max_block_envs.argtypes = [ctypes.c_int]
+    h.physics_max_block_envs.restype = ctypes.c_int
     return h
 
 
-def _run_host(h, step, st, act, ep, lanes_reversed=False):
-    """The wrapper's SoA packing around the host-compiled kernel body."""
+def _run_host(h, step, st, act, ep, lanes_reversed=False, group=32, order=None):
+    """The wrapper's SoA packing around the host-compiled kernel body, at
+    ``group`` lanes per env (16: two envs per warp), the lanes of each phase
+    run in ``order`` (a key of ``ORDERS``; ``lanes_reversed``: "reversed",
+    else "forward")."""
     B, nj, ng, nf = st.base_pos.shape[0], step.model.nj, step.model.ng, step.nf
     state = torch.cat([st.base_pos.T, st.base_quat.T, st.joint_pos.T, st.base_lin_vel.T,
                        st.base_ang_vel.T, st.joint_vel.T, st.contact_anchor.reshape(B, -1).T]).contiguous()
@@ -117,10 +184,13 @@ def _run_host(h, step, st, act, ep, lanes_reversed=False):
     gf, fp, fv = torch.empty(3 * ng, B), torch.empty(3 * nf, B), torch.empty(3 * nf, B)
     tf, ti = torch.as_tensor(step.tf_host), torch.as_tensor(step.ti_host)
     tex = (torch.as_tensor(step.terrain.corner_tex) if step.rough else torch.zeros(4))
-    h.host_step(state.data_ptr(), a.data_ptr(), ep.friction_scale.data_ptr(),
-                ep.base_mass_delta.data_ptr(), tf.data_ptr(), ti.data_ptr(), tex.data_ptr(),
-                out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fp.data_ptr(), fv.data_ptr(), B,
-                int(step.rough), int(lanes_reversed))
+    lanes = torch.tensor(ORDERS[order or ("reversed" if lanes_reversed else "forward")],
+                         dtype=torch.int32)
+    rc = h.host_step(state.data_ptr(), a.data_ptr(), ep.friction_scale.data_ptr(),
+                     ep.base_mass_delta.data_ptr(), tf.data_ptr(), ti.data_ptr(), tex.data_ptr(),
+                     out.data_ptr(), tau.data_ptr(), gf.data_ptr(), fp.data_ptr(), fv.data_ptr(),
+                     B, int(step.rough), group, lanes.data_ptr())
+    assert rc == 0, "the lanes of a warp ran different numbers of phases"
     o = out.T
     new = st.replace(base_pos=o[:, :3], base_quat=o[:, 3:7], joint_pos=o[:, 7:7 + nj],
                      base_lin_vel=o[:, 7 + nj:10 + nj], base_ang_vel=o[:, 10 + nj:13 + nj],
@@ -129,13 +199,16 @@ def _run_host(h, step, st, act, ep, lanes_reversed=False):
     return new, tau.T, gf.T.reshape(B, ng, 3), fp.T.reshape(B, nf, 3), fv.T.reshape(B, nf, 3)
 
 
-@pytest.mark.parametrize("control_type", ["P", "T"])
-def test_kernel_body_matches_plain(host_lib, control_type):
+@pytest.mark.parametrize("control_type,group", [("P", 32), ("T", 32), ("P", 16), ("T", 16)],
+                         ids=["P", "T", "P-packed", "T-packed"])
+def test_kernel_body_matches_plain(host_lib, control_type, group):
+    """B1's body with ANYmal-C's tables against the plain version, a warp per
+    env and two envs per warp (63 envs: the last warp's second env absent)."""
     model = load_model(MODEL)
     step = pk.make_decimated_env_step(model, default_sim_params(), flat_terrain(), 4,
                                       np.full(12, 80.0, np.float32), np.full(12, 2.0, np.float32),
                                       model.default_dof_pos, 0.5, control_type=control_type)
-    B = 64
+    B = 64 if group == 32 else 63
     rng = np.random.default_rng(0)
     t = lambda a: torch.as_tensor(a.astype(np.float32))
     st = initial_state(model, B, pos=(0.0, 0.0, 0.54), device="cpu")
@@ -146,7 +219,7 @@ def test_kernel_body_matches_plain(host_lib, control_type):
                     base_ang_vel=t(0.3 * rng.standard_normal((B, 3))))
     ep = EnvPhysParams(t(rng.uniform(0.5, 1.25, B)), t(rng.uniform(-1.0, 1.0, B)))
     act = t(rng.standard_normal((B, 12)) * (1.0 if control_type == "P" else 10.0))
-    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
+    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep, group=group)
     ref, tau_r, rep = step.plain(st, act, ep)
     for name, atol in TOLS.items():
         np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
@@ -157,11 +230,11 @@ def test_kernel_body_matches_plain(host_lib, control_type):
     np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
 
 
-def _assert_body_matches_plain(host_lib, step, st, act, ep, plain_dtype=None):
-    """The host body against the plain step run in ``plain_dtype`` (default
-    float32; its outputs come back as float32); returns the plain step's
-    report."""
-    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
+def _assert_body_matches_plain(host_lib, step, st, act, ep, plain_dtype=None, group=32):
+    """The host body at ``group`` lanes per env against the plain step run in
+    ``plain_dtype`` (default float32; its outputs come back as float32);
+    returns the plain step's report."""
+    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep, group=group)
     ref, tau_r, rep = step.plain(st, act, ep, dtype=plain_dtype)
     for name, atol in TOLS.items():
         np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
@@ -214,18 +287,21 @@ def test_elspider_workspace_size_matches_source(host_lib):
     assert task_step("elspider_air_flat", "cpu").ws_bytes == 4 * pk.workspace_words(nb, nj, ng, nf)
 
 
-@pytest.mark.parametrize("task", ["elspider_air_rough", "go2_rough", "a1_flat"])
-def test_family_kernel_body_matches_plain(host_lib, task):
+@pytest.mark.parametrize("task,group", [("elspider_air_rough", 32), ("go2_rough", 32), ("a1_flat", 32),
+                                        ("go2_rough", 16), ("a1_flat", 16)],
+                         ids=["elspider_air_rough", "go2_rough", "a1_flat", "go2_rough-packed",
+                              "a1_flat-packed"])
+def test_family_kernel_body_matches_plain(host_lib, task, group):
     """B2's per-env body with the hexapod's and Go2's tables on their rough
     tasks' grids (spawn origins, levels 0..max_init_terrain_level), and
     B1's with A1's, against the plain version from near-standing states:
-    the robots stand on the ground."""
+    the robots stand on the ground; Go2 and A1 also two envs per warp."""
     B = 64
     env = task_env(task, "cpu", B)
     step = env.decimated_step
     assert step.rough == (task != "a1_flat") and not step.model.fix_base
     st, ep, act = task_states(env, B, 0, "cpu")
-    rep = _assert_body_matches_plain(host_lib, step, st, act, ep)
+    rep = _assert_body_matches_plain(host_lib, step, st, act, ep, group=group)
     assert float(rep.geom_forces[..., 2].sum()) > 20.0 * B
 
 
@@ -299,11 +375,15 @@ def _over(terrain, B, seed):
     return torch.cat([xy, sample_height(terrain, xy)[:, None]], dim=-1)
 
 
-@pytest.mark.parametrize("terrain", ["slope", "grid", "rough_cfg_spawn"])
-def test_rough_kernel_body_matches_plain(host_lib, terrain):
+@pytest.mark.parametrize("terrain,group", [("slope", 32), ("grid", 32), ("rough_cfg_spawn", 32),
+                                           ("slope", 16), ("rough_cfg_spawn", 16)],
+                         ids=["slope", "grid", "rough_cfg_spawn", "slope-packed",
+                              "rough_cfg_spawn-packed"])
+def test_rough_kernel_body_matches_plain(host_lib, terrain, group):
     """B2's per-env body against the plain version on a slope, on a
     generated grid and on the rough config's 900 x 900 grid at its spawn
-    origins, near-standing states with random actions."""
+    origins, near-standing states with random actions; a warp per env and
+    two envs per warp."""
     model = load_model(MODEL)
     B = 64
     if terrain == "rough_cfg_spawn":
@@ -317,7 +397,7 @@ def test_rough_kernel_body_matches_plain(host_lib, terrain):
         origins = _over(td, B, seed=1)
     assert step.rough
     st, ep, act = near_standing(model, B, 0, "cpu", origins)
-    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
+    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep, group=group)
     ref, tau_r, rep = step.plain(st, act, ep)
     assert float(rep.geom_forces[..., 2].sum()) > 100.0 * B      # the robots stand on the terrain
     for name, atol in TOLS.items():
@@ -329,12 +409,22 @@ def test_rough_kernel_body_matches_plain(host_lib, terrain):
     np.testing.assert_allclose(gf.numpy(), rep.geom_forces.numpy(), atol=0.5)
 
 
-@pytest.mark.parametrize("rough", [False, True])
-def test_kernel_body_is_lane_order_free(host_lib, rough):
+LANE_ORDERS = [(False, 32, "reversed"), (True, 32, "reversed")] + [
+    (rough, 16, order) for rough in (False, True)
+    for order in ("reversed", "groups_swapped", "interleaved")]
+
+
+@pytest.mark.parametrize("rough,group,order", LANE_ORDERS,
+                         ids=["False", "True"] + [f"{r}-packed-{o}" for r, _, o in LANE_ORDERS[2:]])
+def test_kernel_body_is_lane_order_free(host_lib, rough, group, order):
     """The lanes of every phase run last to first give the same bits as first
     to last: within a phase no lane reads what another lane writes, so the
     warp's lanes may run in any order (the kernel's summation orders are
-    fixed, no atomics)."""
+    fixed, no atomics).  Two envs per warp (15 envs: the last warp's second
+    env absent): the same bits with the lanes reversed, the two groups
+    swapped or interleaved lane by lane, so no lane reads what a lane of
+    either group writes in the same phase, and the same bits as a warp per
+    env."""
     model = load_model(MODEL)
     B = 16
     if rough:
@@ -345,14 +435,23 @@ def test_kernel_body_is_lane_order_free(host_lib, rough):
                                           np.full(12, 80.0, np.float32),
                                           np.full(12, 2.0, np.float32), model.default_dof_pos, 0.5)
         origins = None
+    if group == 16:
+        B = 15
     st, ep, act = near_standing(model, B, 3, "cpu", origins)
-    fwd = _run_host(host_lib, step, st, act, ep)
-    rev = _run_host(host_lib, step, st, act, ep, lanes_reversed=True)
-    for a, b in zip(fwd[1:], rev[1:]):
-        assert torch.equal(a, b)
-    for name in TOLS:
-        assert torch.equal(getattr(fwd[0], name), getattr(rev[0], name)), name
+    fwd = _run_host(host_lib, step, st, act, ep, group=group)
+    rev = _run_host(host_lib, step, st, act, ep, group=group, order=order)
+    _assert_same_bits(fwd, rev)
+    if group == 16:
+        _assert_same_bits(_run_host(host_lib, step, st, act, ep), fwd)
     assert bool(torch.isfinite(fwd[2]).all()) and float(fwd[2][..., 2].sum()) > 100.0 * B
+
+
+def _assert_same_bits(a, b):
+    """Two ``_run_host`` results agree bit for bit."""
+    for x, y in zip(a[1:], b[1:]):
+        assert torch.equal(x, y)
+    for name in TOLS:
+        assert torch.equal(getattr(a[0], name), getattr(b[0], name)), name
 
 
 def test_workspace_size_matches_formula(host_lib):
@@ -380,17 +479,19 @@ def test_workspace_size_matches_formula(host_lib):
         pk.block_shared_bytes(40, 39, 400, 4, rough=True)
 
 
-@pytest.mark.parametrize("control_type", ["P", "T"])
-def test_fixed_base_kernel_body_matches_plain(host_lib, control_type):
+@pytest.mark.parametrize("control_type,group", [("P", 32), ("T", 32), ("P", 16)],
+                         ids=["P", "T", "P-packed"])
+def test_fixed_base_kernel_body_matches_plain(host_lib, control_type, group):
     """The fixed-base regime with the arm's tables: zero base acceleration, no
     base solve, no feet, the one geom on the base; joints as the plain
-    fixed-base step, the base pose unchanged bit for bit."""
+    fixed-base step, the base pose unchanged bit for bit; a warp per env and
+    two envs per warp."""
     step = franka_step("cpu", control_type)
     assert step.model.fix_base and step.nf == 0 and int(step.ti_host[pk.TI_FIX]) == 1
     st, ep, act = at_rest(step.model, 64, 0, "cpu")
     if control_type == "T":
         act = 20.0 * act
-    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep)
+    new, tau, gf, fp, fv = _run_host(host_lib, step, st, act, ep, group=group)
     ref, tau_r, rep = step.plain(st, act, ep)
     for name, atol in TOLS.items():
         np.testing.assert_allclose(getattr(new, name).numpy(), getattr(ref, name).numpy(),
@@ -557,3 +658,97 @@ def test_fixed_base_matches_the_pallas_kernel_in_interpret_mode(host_lib):
         np.testing.assert_allclose(got.numpy(), jfp[idx], atol=1e-4)
     for got in (rep.geom_forces, host[2]):
         np.testing.assert_allclose(got[..., 2].sum(dim=1).numpy(), jfz[idx], rtol=0.2, atol=30.0)
+
+
+PACKED_TASKS = ["anymal_c_flat", "a1_flat", "go2_flat", "cyberdog2_walk", "anymal_b", "cassie",
+                "franka"]
+
+
+@pytest.mark.parametrize("task", PACKED_TASKS)
+def test_packed_body_matches_warp_body(host_lib, task):
+    """Every robot of at most 16 bodies whose joints and base fit 16 lanes
+    (B1 on ANYmal-C, A1, Go2 and CyberDog2, B2 on ANYmal-B's and Cassie's
+    grids, the fixed-base regime on the arm): two envs per warp give the bits
+    of a warp per env on the same inputs, with the lanes of each phase run
+    first to last, last to first, group by group swapped and interleaved
+    (37 envs: the last warp's second env absent)."""
+    B = 37
+    if task == "franka":
+        step = franka_step("cpu")
+        states = at_rest(step.model, B, 5, "cpu")
+    else:
+        env = task_env(task, "cpu", B)
+        step = env.decimated_step
+        states = task_states(env, B, 5, "cpu")
+    assert step.packable
+    st, ep, act = states
+    warp = _run_host(host_lib, step, st, act, ep)
+    for order in ORDERS:
+        _assert_same_bits(warp, _run_host(host_lib, step, st, act, ep, group=16, order=order))
+
+
+@pytest.mark.parametrize("task", ["elspider_air_flat", "foot_track_elspider_air_hang"])
+def test_wide_models_keep_a_warp_per_env(task):
+    """The hexapods' 19 bodies do not fit half a warp: their steps never
+    pack."""
+    step = task_env(task, "cpu", 1).decimated_step
+    assert step.model.nb == 19 and not step.packable
+
+
+def test_packed_block_matches_source(host_lib):
+    """A block of two envs per warp holds 8 envs, or as many as one block's
+    shared memory holds up to ``PACKED_MAX_ENVS``: the wrapper's bytes are the
+    source's, 97404 for 8 of ANYmal-C's B1 envs (2 blocks per SM), 227580 for
+    its full block of 20 (one per SM, 19 in B2), and a packed block of 8 envs
+    of the largest model the tables hold fits one block's shared memory."""
+    assert host_lib.physics_max_block_envs(32) == pk.ENVS_PER_BLOCK
+    assert host_lib.physics_max_block_envs(16) == pk.PACKED_MAX_ENVS
+    sizes_list = ((13, 12, 36, 4), (13, 12, 24, 4), (13, 12, 56, 4), (13, 12, 37, 4),
+                  (13, 12, 9, 2), (8, 7, 1, 0), (16, 15, 64, 8), (32, 31, 64, 8))
+    for sizes in sizes_list:
+        for rough in (False, True):
+            ws = 4 * pk.workspace_words(*sizes, rough)
+            for envs in (pk.ENVS_PER_BLOCK, pk.PACKED_ENVS_PER_BLOCK):
+                nbytes = pk.block_shared_bytes(*sizes, rough, envs=envs)
+                assert nbytes == host_lib.physics_block_bytes(ws, envs), (sizes, rough, envs)
+                assert nbytes == envs * ws + 4 * (pk.TF_SIZE + pk.TI_FULL)
+    assert pk.block_shared_bytes(13, 12, 36, 4, envs=8) == 97404
+    assert 2 * (97404 + 1024) <= 233472 < 3 * (97404 + 1024)    # an H100 SM: 228 KB
+    model = load_model(MODEL)
+    for rough, full in ((False, 20), (True, 19)):
+        terrain = (from_numpy(np.arange(64, dtype=np.float32).reshape(8, 8) * 0.01, 0.1) if rough
+                   else flat_terrain())
+        step = pk.make_decimated_env_step(model, default_sim_params(), terrain, 4,
+                                          np.full(12, 80.0, np.float32),
+                                          np.full(12, 2.0, np.float32), model.default_dof_pos, 0.5)
+        assert step.rough == rough and step.packable and step.full_envs == full
+        nbytes = pk.block_shared_bytes(13, 12, 36, 4, rough, envs=full)
+        assert nbytes == host_lib.physics_block_bytes(step.ws_bytes, full) <= pk.SMEM_PER_BLOCK
+        assert nbytes + step.ws_bytes > pk.SMEM_PER_BLOCK or full == pk.PACKED_MAX_ENVS
+    assert pk.block_shared_bytes(13, 12, 36, 4, envs=20) == 227580
+
+
+@pytest.mark.parametrize("resident,B,shape", [
+    ((132, 12, 16, 20), 64, (32, 4)), ((132, 12, 16, 20), 1584, (32, 4)),
+    ((132, 12, 16, 20), 2112, (16, 8)), ((132, 12, 16, 20), 10559, (16, 8)),
+    ((132, 12, 16, 20), 10560, (16, 20)), ((132, 12, 16, 20), 262144, (16, 20)),
+    ((132, 16, 16, 19), 4096, (16, 8)), ((132, 12, 8, 15), 4096, (32, 4)),
+    ((132, 12, 8, 15), 262144, (16, 20))],
+    ids=["B1-64", "B1-wave", "B1-2112", "B1-below-full", "B1-full", "B1-262144", "B2-4096",
+         "wide-workspace-4096", "wide-workspace-262144"])
+def test_launch_shape_follows_residency(resident, B, shape):
+    """The wrapper's launch shape from the card's SMs and the envs an SM
+    holds at a warp per env, in packed blocks of 8 and in full packed blocks
+    (given here as the occupancy calculator's readings): a warp per env up
+    to one wave, packed blocks of 8 above it, full blocks from
+    ``FULL_BLOCK_WAVES`` waves of them up, and a warp per env wherever the
+    packed layout would hold fewer envs per SM; the hexapod never packs."""
+    model = load_model(MODEL)
+    step = pk.make_decimated_env_step(model, default_sim_params(), flat_terrain(), 4,
+                                      np.full(12, 80.0, np.float32), np.full(12, 2.0, np.float32),
+                                      model.default_dof_pos, 0.5)
+    lib = type("Lib", (), {"packed": True})()
+    step._resident[(id(lib), "cuda:0")] = resident
+    assert step.launch_shape(B, torch.device("cuda:0"), lib) == shape
+    wide = task_env("elspider_air_flat", "cpu", 1).decimated_step
+    assert wide.launch_shape(B, torch.device("cuda:0"), lib) == (32, 4)
